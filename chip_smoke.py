@@ -5,17 +5,30 @@
 Phases (any failure raises, so the exit code is non-zero):
   1. environment: a CUDA device must exist; prints the card's name and
      power limit as nvidia-smi reports them;
-  2. build: compiles dpvo_torch/csrc/corr_onepass.cu with nvcc;
-  3. kernel vs plain: the correlation kernel against its plain PyTorch
-     version at the main path's shapes (E = 49,152 edges, 36 frames of
-     120x160 and 30x40 bf16 maps), plus the fast.yaml row layout (M = 48),
-     with the times of both (CUDA events, median of 20);
-  4. main path: dpvo_torch.runtime.DPVO with config/default.yaml at 640x480
-     and the full-width VONet (artifacts/micro_vonet.npz), 40 synthetic
-     frames + terminate(); the kernel's launch count must cover every update
-     iteration. Then the same runtime on CUDA and on the CPU (plain
-     correlation) at 64x96 must agree.
-The last two lines of stdout are a JSON line with the kernel's numbers and
+  2. build: compiles dpvo_torch/csrc/corr_onepass.cu (K1) and
+     dpvo_torch/csrc/corr_fused.cu (K2 planes, K3 tap select) with nvcc,
+     one process per source, started together; prints ptxas's register and
+     spill lines of each kernel;
+  3. kernels vs plain, at the main paths' shapes (E = 49,152 edges, 36
+     frames of 120x160 and 30x40 bf16 maps): K1 (plus the fast.yaml row
+     layout, M = 48), K2, K3 (also on the pixels whose spread overflows
+     the window, which it must zero), and K2 + K3 against the exact
+     correlation on edges whose spread fits the window, with the times of
+     kernel and plain (CUDA events, median of 20);
+  4. DeviceVO main path: dpvo_torch.runtime.DPVO with config/default.yaml at
+     640x480 and the full-width VONet (artifacts/micro_vonet.npz), 40
+     synthetic frames + terminate(); K1 must cover every update iteration;
+     wall, device busy, idle share and top kernels from a profiler trace;
+  5. hybrid main path: the same with CENTROID_SEL_STRAT=GRADIENT_BIAS
+     (HybridVO) and DPVO_CORR_IMPL=fused_k, 40 frames + terminate(); K2 and
+     K3 must cover every update iteration; the same measurements;
+  6. DeviceVO with DPVO_CORR_IMPL=fused_k, 12 frames + terminate() at
+     640x480: K2 and K3 launch there too;
+  7. CUDA vs CPU: DeviceVO at 64x96 (K1 vs plain) and HybridVO at 256x320
+     with onepass, its default (K1), and with fused_k (K2 + K3), each
+     against its plain versions, f32: poses agree and the CUDA run
+     launched its kernels.
+The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
 import json
@@ -52,7 +65,11 @@ def synthetic_frames(n, H, W, seed):
 def corr_case(E, F, H1, W1, Ng, seed, kk=None):
     """Seeded f32 maps (callers round them to bf16) and coords covering the
     interior, all four borders, negative coords and coords far outside the
-    map; 3x3 pixel grids with a jittered spread of up to ~3 px."""
+    map; 3x3 pixel grids with a jittered spread of up to ~3 px, except the
+    first E // 16 (interior) edges, whose x and y spreads reach ~18 px: they
+    overflow the fused correlation's windows (y spread > 4 px or x spread
+    > 5 px at a level) at one level or both, and the select zeroes those
+    pixels."""
     rng = np.random.RandomState(seed)
     gmap = rng.randn(Ng, 3, 3, 128).astype(np.float32)
     f1 = rng.randn(F, H1, W1, 128).astype(np.float32)
@@ -66,11 +83,14 @@ def corr_case(E, F, H1, W1, Ng, seed, kk=None):
                          rng.uniform(4, H1 - 5, 2 * q),
                          rng.uniform(-6, 3, q), rng.uniform(H1 - 3, H1 + 6, q),
                          rng.uniform(-3 * H1, 4 * H1, q)])
-    sp = rng.uniform(0.5, 1.5, (E, 1, 1))
+    spx = rng.uniform(0.5, 1.5, (E, 1, 1))
+    spy = spx.copy()
+    n_ov = E // 16
+    spx[:n_ov], spy[:n_ov] = rng.uniform(0.5, 9.0, (2, n_ov, 1, 1))
     off = np.linspace(-1.0, 1.0, 3)
-    gx = cx[:, None, None] + sp * off[None, None, :] + \
+    gx = cx[:, None, None] + spx * off[None, None, :] + \
         rng.uniform(-.3, .3, (E, 3, 3))
-    gy = cy[:, None, None] + sp * off[None, :, None] + \
+    gy = cy[:, None, None] + spy * off[None, :, None] + \
         rng.uniform(-.3, .3, (E, 3, 3))
     coords = np.stack([gx, gy], -1).astype(np.float32)
     if kk is None:
@@ -139,6 +159,108 @@ def kernel_vs_plain(dev, E, F, H1, W1, Ng, nv, seed, kk=None, timed=False):
     return err, k_ms, p_ms
 
 
+def fused_vs_plain(dev, E, F, H1, W1, Ng, seed):
+    """K2 and K3 against their plain versions, and K2 + K3 against the
+    exact correlation, on the same inputs (bf16 maps). Bounds:
+      * K2 vs plain: both sum 128 f32 products per entry in another order,
+        then round to bf16: |err| <= 2^-7 |plain| + 1e-5 max|plain| (the
+        second term for entries that cancel to near zero);
+      * K3 vs plain: the same f32 operations (no FMA contraction in either)
+        on the same planes: <= 1e-6 max|plain|;
+      * K2 + K3 vs the exact correlation (ops/corr.py, f32) on edges whose
+        3x3 spread fits the windows: one bf16 rounding of the plane entries,
+        <= 2^-8 max|plane| + 1e-5 max|exact|.
+    Returns ((K2 err, ms, plain ms), (K3 err, ms, plain ms))."""
+    import torch
+    from dpvo_torch.ops import corr_fused as cf
+    from dpvo_torch.ops.corr import corr_two_level as corr_exact
+    gmap, f1, f2, coords, kk, jj = corr_case(E, F, H1, W1, Ng, seed)
+    g, f1, f2 = (torch.from_numpy(a).to(dev).to(torch.bfloat16)
+                 for a in (gmap, f1, f2))
+    co, kk_t, jj_t = (torch.from_numpy(a).to(dev) for a in (coords, kk, jj))
+    g9 = g.reshape(Ng, 9, 128)
+    H2, W2 = f2.shape[1:3]
+    w1 = cf.window_base(co, H1, W1, 8)
+    w2 = cf.window_base(co / 4.0, H2, W2, 4)
+    pargs = (g9, f1, f2, kk_t, jj_t, w1[4], w1[5], w2[4], w2[5])
+
+    p1, p2 = cf.planes(*pargs)
+    r1, r2 = cf.planes_plain(*pargs)
+    torch.cuda.synchronize()
+    err2 = 0.0
+    for got, ref in ((p1, r1), (p2, r2)):
+        got, ref = got.float(), ref.float()
+        check(bool(torch.isfinite(got).all()), 'K2 output not finite')
+        d = (got - ref).abs()
+        bound = 2 ** -7 * ref.abs() + 1e-5 * ref.abs().max()
+        check(bool((d <= bound).all()), f'K2 vs plain: {d.max().item()} '
+              f'over the bound (max|plain| {ref.abs().max().item()})')
+        err2 = max(err2, d.max().item())
+    print(f'  K2 planes: max|kernel-plain| = {err2!r} (bound 2^-7 |plain| + '
+          f'1e-5 max|plain|)', flush=True)
+
+    def sel_args(plane, w, H, W):
+        xi, yi, fx, fy, _, _, oy, ox = w
+        return plane, yi, xi, fy, fx, oy, ox, H, W
+
+    sargs = [sel_args(p1, w1, H1, W1), sel_args(p2, w2, H2, W2)]
+    # pixels whose 8x8 tap block does not fit the window (oy, ox >= 0
+    # always): K3's explicit zeroing branch
+    over = [(w[6] > wy - 8) | (w[7] > wx - 8)
+            for w, wy, wx in ((w1, cf.WY, cf.WX), (w2, cf.WY2, cf.WX2))]
+    err3, scale3 = 0.0, 0.0
+    sel = []
+    for lvl, (a, ov) in enumerate(zip(sargs, over), 1):
+        got = cf.select_taps(*a)
+        ref = cf.select_plain(*a)
+        torch.cuda.synchronize()
+        check(got.shape == (E, 7, 7, 3, 3), f'K3 output shape {got.shape}')
+        scale = ref.abs().max().item()
+        d = (got - ref).abs().max().item()
+        check(d <= 1e-6 * scale, f'K3 vs plain: {d} > 1e-6 * {scale}')
+        # (E, dx, dy, py, px) -> (E, 9 pixels, 49 taps)
+        per_pix = got.permute(0, 3, 4, 1, 2).reshape(E, 9, 49)
+        ref_pix = ref.permute(0, 3, 4, 1, 2).reshape(E, 9, 49)
+        n_ov = int(ov.sum())
+        d_ov = (per_pix - ref_pix)[ov].abs().max().item()
+        check(n_ov > 0, f'level {lvl}: no pixel overflows its window')
+        check(d_ov <= 1e-6 * scale and not per_pix[ov].any(),
+              f'level {lvl}: K3 does not zero the overflowing pixels '
+              f'(max|kernel-plain| there {d_ov})')
+        print(f'  K3 level {lvl}: {n_ov} of {E * 9} pixels overflow the '
+              f'window, max|kernel-plain| on them = {d_ov!r} (all zero)',
+              flush=True)
+        err3, scale3 = max(err3, d), max(scale3, scale)
+        sel.append(got)
+    print(f'  K3 select (both levels): max|kernel-plain| = {err3!r} '
+          f'(max|plain| = {scale3!r}, bound 1e-6 * max|plain|)', flush=True)
+
+    # K2 + K3 against the exact correlation where every pixel's 8x8 block
+    # fits its window at both levels
+    fits = ~(over[0] | over[1]).any(1)
+    c1, c2 = cf.corr_fused(g, f1, f2, co, kk_t, jj_t)
+    ex = corr_exact(g, f1, f2, co, kk_t, jj_t, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    check(torch.equal(c1, sel[0]) and torch.equal(c2, sel[1]),
+          'corr_fused differs from its own K2 + K3 launches')
+    pmax = max(p1.float().abs().max().item(), p2.float().abs().max().item())
+    emax = ex.abs().max().item()
+    d = (torch.stack([c1, c2], -1) - ex)[fits].abs().max().item()
+    bound = 2 ** -8 * pmax + 1e-5 * emax
+    check(d <= bound, f'K2 + K3 vs exact: {d} > {bound}')
+    print(f'  K2 + K3 vs exact correlation on {int(fits.sum())} of {E} '
+          f'edges (spread fits the windows): max|err| = {d!r} (bound '
+          f'2^-8 max|plane| + 1e-5 max|exact| = {bound!r})', flush=True)
+
+    k2_ms = time_ms(lambda: cf.planes(*pargs))
+    p2_ms = time_ms(lambda: cf.planes_plain(*pargs))
+    k3_ms = time_ms(lambda: [cf.select_taps(*a) for a in sargs])
+    p3_ms = time_ms(lambda: [cf.select_plain(*a) for a in sargs])
+    print(f'  time (median of 20): K2 {k2_ms!r} ms, plain {p2_ms!r} ms; '
+          f'K3 (both levels) {k3_ms!r} ms, plain {p3_ms!r} ms', flush=True)
+    return (err2, k2_ms, p2_ms), (err3, k3_ms, p3_ms)
+
+
 def device_time(trace_path):
     """(busy ms, {kernel name: ms}, device op count) from a chrome trace:
     the union of GPU kernel / memcpy / memset intervals, the summed time of
@@ -164,24 +286,64 @@ def device_time(trace_path):
     return busy / 1e3, by_name, len(events)
 
 
-def main_path(dev, n_frames=40):
-    """DPVO at 640x480 with default.yaml and the full-width VONet."""
+def reset_launches():
+    from dpvo_torch.ops import corr_fused, corr_onepass
+    corr_onepass.launches = 0
+    corr_fused.plane_launches = 0
+    corr_fused.select_launches = 0
+
+
+def read_launches():
+    from dpvo_torch.ops import corr_fused, corr_onepass
+    return dict(corr_onepass=corr_onepass.launches,
+                corr_planes=corr_fused.plane_launches,
+                corr_select=corr_fused.select_launches)
+
+
+def make_slam(cfg, H, W, dev, corr_impl):
+    """dpvo_torch.runtime.DPVO with DPVO_CORR_IMPL=corr_impl (read when the
+    runtime is built), the motion probe forced (random / untrained weights
+    never pass it)."""
+    from dpvo_torch.runtime import DPVO, HybridVO
+    old = os.environ.get('DPVO_CORR_IMPL')
+    os.environ['DPVO_CORR_IMPL'] = corr_impl
+    try:
+        slam = DPVO(cfg, WEIGHTS, ht=H, wd=W, seed=0, device=dev)
+    finally:
+        if old is None:
+            del os.environ['DPVO_CORR_IMPL']
+        else:
+            os.environ['DPVO_CORR_IMPL'] = old
+    if isinstance(slam, HybridVO):
+        slam.motion_probe = lambda: 100.0
+    else:
+        slam.force_accept = True
+    return slam
+
+
+def main_path(dev, label, corr_impl, n_frames=40, measure=True, **overrides):
+    """DPVO at 640x480 with default.yaml (+ overrides) and the full-width
+    VONet: n_frames + terminate(), launch counts set to 0 just before and
+    read just after. With measure, frames 10..n-11 give the wall time and
+    frames n-10..n-1 a profiler trace. Returns (launches, update
+    iterations)."""
     import torch
     from dpvo_torch.config import cfg as base_cfg
-    from dpvo_torch.ops import corr_onepass
-    from dpvo_torch.runtime import DPVO
 
     H, W = 480, 640
     cfg = base_cfg.clone()
     cfg.merge_from_file(CONFIG)
+    for k, v in overrides.items():
+        cfg[k] = v
     frames = synthetic_frames(n_frames, H, W, seed=0)
     intr = np.array([460.0, 460.0, W / 2, H / 2], np.float32)
-    slam = DPVO(cfg, WEIGHTS, ht=H, wd=W, seed=0, device=dev)
-    slam.force_accept = True
+    slam = make_slam(cfg, H, W, dev, corr_impl)
+    print(f'  {label}: {type(slam).__name__}, DPVO_CORR_IMPL={corr_impl}',
+          flush=True)
 
-    corr_onepass.launches = 0
+    reset_launches()
     walls = []
-    trace_frames = range(n_frames - 10, n_frames)
+    trace_frames = range(n_frames - 10 if measure else n_frames, n_frames)
     with tempfile.TemporaryDirectory() as tmp:
         from torch.profiler import ProfilerActivity, profile
         prof = None
@@ -196,14 +358,15 @@ def main_path(dev, n_frames=40):
             slam(t, img, intr)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        wall_trace = time.perf_counter() - t_trace
-        prof.__exit__(None, None, None)
-        path = f'{tmp}/trace.json'
-        prof.export_chrome_trace(path)
-        busy, by_name, n_ops = device_time(path)
+        if prof is not None:
+            wall_trace = time.perf_counter() - t_trace
+            prof.__exit__(None, None, None)
+            path = f'{tmp}/trace.json'
+            prof.export_chrome_trace(path)
+            busy, by_name, n_ops = device_time(path)
         poses, tstamps = slam.terminate()
         torch.cuda.synchronize()
-    launches = corr_onepass.launches
+    launches = read_launches()
 
     expected = 12 + (n_frames - 8) + 12     # bootstrap + 1/frame + refine
     check(poses.shape == (n_frames, 7), f'poses shape {poses.shape}')
@@ -211,17 +374,18 @@ def main_path(dev, n_frames=40):
     check(np.allclose(np.linalg.norm(poses[:, 3:], axis=-1), 1.0, atol=1e-3),
           'quaternions not unit')
     for name, t in slam.st.tensors().items():
-        check(t.device.type == 'cuda', f'VOState.{name} on {t.device}')
-    check(launches >= expected, f'kernel launched {launches} times, '
-          f'expected >= {expected}')
+        check(t.device.type == 'cuda', f'state.{name} on {t.device}')
+    edges = f', live edges {len(slam.ii)}' if hasattr(slam, 'ii') else ''
+    print(f'  {n_frames} frames + terminate(): keyframes n = {slam.n}'
+          f'{edges}, launches {launches} (update iterations = {expected})')
+    if not measure:
+        return launches, expected
 
     # frames 10 .. trace start run without the profiler, whose host-side
     # tracing slows every launch: they give the wall time and frames/s
     steady = walls[10:trace_frames.start]
     wall_ms = 1e3 * float(np.median(steady))
     q25, q75 = (1e3 * float(q) for q in np.percentile(steady, [25, 75]))
-    print(f'  {n_frames} frames + terminate(): keyframes n = {slam.n}, '
-          f'kernel launches = {launches} (update iterations = {expected})')
     print(f'  steady-state wall per frame (median of frames 10..'
           f'{trace_frames.start - 1}, host clock with sync): '
           f'{wall_ms!r} ms (quartiles {q25!r}, {q75!r}) -> '
@@ -242,36 +406,52 @@ def main_path(dev, n_frames=40):
     else:
         print('  device busy per frame: not measured (no device events in '
               'the profiler trace)', flush=True)
-    return launches
+    return launches, expected
 
 
 def small_cpu_vs_cuda(dev):
-    """The runtime at 64x96 on CUDA (kernel) and on the CPU (plain
-    correlation), f32: the poses must agree (both compute the same f32 ops;
-    sums run in another order, so the bound is 1e-3)."""
-    import torch
+    """The runtimes on CUDA (kernels) and on the CPU (plain versions), f32,
+    same frames and seed: the poses must agree, and the CUDA run must have
+    launched its correlation kernels. DeviceVO at 64x96 (K1 vs ops/corr.py;
+    both compute the same f32 ops with sums in another order, bound 1e-3);
+    HybridVO at 256x320, M = 8, 16 frames, with onepass (its default: K1
+    over the padded edge table) and with fused_k (L2 16x20, so K2 + K3 vs
+    their plain versions; the planes may round to bf16 one step apart where
+    the f32 sums differ in their last bits), bound 1e-3 as well."""
     from dpvo_torch.config import cfg as base_cfg
-    from dpvo_torch.runtime import DPVO
 
-    H, W = 64, 96
-    cfg = base_cfg.clone()
-    cfg.merge_from_file(CONFIG)
-    cfg.PATCHES_PER_FRAME = 8
-    cfg.BUFFER_SIZE = 64
-    cfg.MIXED_PRECISION = False
-    frames = synthetic_frames(16, H, W, seed=1)
-    intr = np.array([60.0, 60.0, W / 2, H / 2], np.float32)
-    out = []
-    for d in (dev, 'cpu'):
-        slam = DPVO(cfg, WEIGHTS, ht=H, wd=W, seed=0, device=d)
-        slam.force_accept = True
-        for t, img in enumerate(frames):
-            slam(t, img, intr)
-        out.append(slam.terminate()[0])
-    err = float(np.abs(out[0] - out[1]).max())
-    check(np.isfinite(out[0]).all(), 'small run: poses not finite')
-    check(err <= 1e-3, f'small run: CUDA vs CPU poses differ by {err}')
-    print(f'  64x96, 16 frames: max |pose CUDA - pose CPU| = {err!r}')
+    gb = dict(CENTROID_SEL_STRAT='GRADIENT_BIAS')
+    for label, (H, W), impl, extra, kernels in (
+            ('DeviceVO', (64, 96), 'onepass', {}, ('corr_onepass',)),
+            ('HybridVO', (256, 320), 'onepass', gb, ('corr_onepass',)),
+            ('HybridVO', (256, 320), 'fused_k', gb,
+             ('corr_planes', 'corr_select'))):
+        cfg = base_cfg.clone()
+        cfg.merge_from_file(CONFIG)
+        cfg.PATCHES_PER_FRAME = 8
+        cfg.BUFFER_SIZE = 64
+        cfg.MIXED_PRECISION = False
+        for k, v in extra.items():
+            cfg[k] = v
+        frames = synthetic_frames(16, H, W, seed=1)
+        intr = np.array([W * 0.625, W * 0.625, W / 2, H / 2], np.float32)
+        out = []
+        for d in (dev, 'cpu'):
+            slam = make_slam(cfg, H, W, d, impl)
+            reset_launches()
+            for t, img in enumerate(frames):
+                slam(t, img, intr)
+            out.append(slam.terminate()[0])
+            if d == dev:
+                launches = read_launches()
+        err = float(np.abs(out[0] - out[1]).max())
+        check(np.isfinite(out[0]).all(), f'{label}: poses not finite')
+        check(err <= 1e-3, f'{label}: CUDA vs CPU poses differ by {err}')
+        check(all(launches[k] > 0 for k in kernels),
+              f'{label} {impl} on CUDA: launches {launches}')
+        print(f'  {label} {H}x{W}, 16 frames, {impl}: max |pose CUDA - pose '
+              f'CPU| = {err!r} (bound 1e-3; n = {slam.n}; CUDA launches '
+              f'{launches})', flush=True)
 
 
 def main():
@@ -284,23 +464,29 @@ def main():
     dev = torch.device('cuda')
     name = torch.cuda.get_device_name(0)
 
-    print('[1/4] environment', flush=True)
+    print('[1/7] environment', flush=True)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f'  torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.device_count()} device(s): {name}')
 
-    print('[2/4] build', flush=True)
-    from dpvo_torch.ops import corr_onepass
+    print('[2/7] build', flush=True)
+    from concurrent.futures import ThreadPoolExecutor
+    from dpvo_torch.ops import corr_fused, corr_onepass
     t0 = time.perf_counter()
-    so = corr_onepass.build()
-    print(f'  {so.name} in {time.perf_counter() - t0:.1f} s')
-    for line in so.with_suffix('.log').read_text().splitlines():
-        if 'registers' in line or 'spill' in line:
-            print('  ' + line.strip())
+    with ThreadPoolExecutor(2) as ex:       # one nvcc per source, together
+        sos = [f.result() for f in [ex.submit(corr_onepass.build),
+                                    ex.submit(corr_fused.build)]]
+    print(f'  {", ".join(so.name for so in sos)} in '
+          f'{time.perf_counter() - t0:.1f} s')
+    for so in sos:
+        for line in so.with_suffix('.log').read_text().splitlines():
+            if 'Compiling entry' in line or 'registers' in line \
+                    or 'spill' in line:
+                print('  ' + line.strip())
 
-    print('[3/4] kernel vs plain', flush=True)
+    print('[3/7] kernels vs plain', flush=True)
     err, k_ms, p_ms = kernel_vs_plain(dev, E=49152, F=36, H1=120, W1=160,
                                       Ng=36 * 96, nv=40013, seed=0,
                                       timed=True)
@@ -308,19 +494,51 @@ def main():
     kk = (np.repeat(np.arange(G) % 36, M) * M + np.tile(np.arange(M), G))
     err48, _, _ = kernel_vs_plain(dev, E=M * G, F=36, H1=120, W1=160,
                                   Ng=36 * M, nv=300 * M, seed=1, kk=kk)
-    corr_onepass.launches = 0
+    k2, k3 = fused_vs_plain(dev, E=49152, F=36, H1=120, W1=160, Ng=36 * 96,
+                            seed=2)
 
-    print('[4/4] main path', flush=True)
-    launches = main_path(dev)
+    print('[4/7] DeviceVO main path', flush=True)
+    dv, dv_iters = main_path(dev, 'default.yaml', 'onepass')
+    check(dv['corr_onepass'] >= dv_iters, f'K1 launched '
+          f'{dv["corr_onepass"]} times, expected >= {dv_iters}')
+
+    print('[5/7] hybrid main path', flush=True)
+    hy, hy_iters = main_path(dev, 'default.yaml + GRADIENT_BIAS', 'fused_k',
+                             CENTROID_SEL_STRAT='GRADIENT_BIAS')
+    # one K2 launch per update iteration, one K3 launch per level
+    check(hy['corr_planes'] >= hy_iters, f'K2 launched '
+          f'{hy["corr_planes"]} times, expected >= {hy_iters}')
+    check(hy['corr_select'] >= 2 * hy_iters, f'K3 launched '
+          f'{hy["corr_select"]} times, expected >= {2 * hy_iters}')
+
+    print('[6/7] DeviceVO with fused_k', flush=True)
+    dk, dk_iters = main_path(dev, 'default.yaml', 'fused_k', n_frames=12,
+                             measure=False)
+    check(dk['corr_planes'] >= dk_iters and
+          dk['corr_select'] >= 2 * dk_iters,
+          f'K2 / K3 launched {dk}, expected >= {dk_iters} / '
+          f'{2 * dk_iters}')
+
+    print('[7/7] CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev)
 
     print(smi)
-    print(json.dumps({'kernels': [{
-        'name': 'corr_onepass', 'route': 'cuda',
-        'source': 'dpvo_torch/csrc/corr_onepass.cu',
-        'replaces': 'dpvo_tpu/ops/corr_onepass.py:196',
-        'launches': launches, 'max_abs_err': max(err, err48),
-        'ms': k_ms, 'plain_ms': p_ms}]}))
+    print(json.dumps({'kernels': [
+        {'name': 'corr_onepass', 'route': 'cuda',
+         'source': 'dpvo_torch/csrc/corr_onepass.cu',
+         'replaces': 'dpvo_tpu/ops/corr_onepass.py:196',
+         'launches': dv['corr_onepass'], 'max_abs_err': max(err, err48),
+         'ms': k_ms, 'plain_ms': p_ms},
+        {'name': 'corr_planes', 'route': 'cuda',
+         'source': 'dpvo_torch/csrc/corr_fused.cu',
+         'replaces': 'dpvo_tpu/ops/corr_fused.py:94',
+         'launches': hy['corr_planes'], 'max_abs_err': k2[0],
+         'ms': k2[1], 'plain_ms': k2[2]},
+        {'name': 'corr_select', 'route': 'cuda',
+         'source': 'dpvo_torch/csrc/corr_fused.cu',
+         'replaces': 'dpvo_tpu/ops/corr_select.py:63',
+         'launches': hy['corr_select'], 'max_abs_err': k3[0],
+         'ms': k3[1], 'plain_ms': k3[2]}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}))

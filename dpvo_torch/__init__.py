@@ -1,18 +1,21 @@
 """dpvo_torch — Deep Patch Visual Odometry on PyTorch and CUDA (Hopper).
 
-The port of dpvo_tpu's pure-VO main path. dpvo_tpu (JAX) stays the
-reference the tests hold this package against; this package imports torch
-and never jax.
+The port of dpvo_tpu's pure-VO runtime (DeviceVO) and of its hybrid runtime
+without loop closure (HybridVO). dpvo_tpu (JAX) stays the reference the
+tests hold this package against; this package imports torch and never jax.
 
 Layer map (module names mirror dpvo_tpu/):
   config.py             CfgNode + defaults
   lie.py                SE3 / quaternion ops on tensors
-  ops/                  patchify, segment scatter, correlation (plain
-                        PyTorch in corr.py; the hand-written sm_90a kernel
-                        behind corr_onepass.py, source in csrc/)
+  ops/                  patchify, segment scatter, correlation: plain
+                        PyTorch in corr.py and beside each kernel; the
+                        hand-written sm_90a kernels behind corr_onepass.py
+                        (K1) and corr_fused.py (K2 planes, K3 select),
+                        sources in csrc/, built by cuda_lib.py
   models/               encoders + VONet (nn.Modules), checkpoint loading
-  ba_pairs.py           pair-blocked Gauss-Newton bundle adjustment
-  runtime/              DeviceVO state machine + DPVO constructor
+  ba_pairs.py, ba.py    Gauss-Newton bundle adjustment: pair-blocked
+                        (DeviceVO) and edge-wise (HybridVO)
+  runtime/              DeviceVO, HybridVO and the DPVO constructor
 """
 
 __version__ = '0.1.0'

@@ -91,6 +91,47 @@ def clamp_start(start, size, total):
     return max(0, min(start, total - size))
 
 
+def solve_step(poses, depth, B, Em, C, v, u, touched, lmbda, t0, t1, s):
+    """One damped Gauss-Newton step from the normal-equation blocks: the
+    dense Schur complement over the per-patch inverse depths, damping
+    S += diag(1e-4 diag(S) + 1) (ba_cuda.cu:546), Cholesky, retraction of
+    the live pose slots [t0, min(t0 + W, t1, N)), depth update + clamps
+    (d > 20 -> 1, d >= 1e-4; ba_cuda.cu:209-229) on the touched slots of
+    the depth window [s, s + PC). B (W, W, 6, 6), Em (W, PC, 6), C / u /
+    touched (PC,), v (W, 6). Returns new (poses, depth); inputs untouched."""
+    W, PC = B.shape[0], C.shape[0]
+    N = poses.shape[0]
+    Q = 1.0 / (C + lmbda)
+    S = B.permute(0, 2, 1, 3).reshape(6 * W, 6 * W)
+    E2 = Em.permute(0, 2, 1).reshape(6 * W, PC)
+    EQ = E2 * Q[None, :]
+    S = S - EQ @ E2.T
+    y = v.reshape(6 * W) - EQ @ u
+    S = S + torch.diag(1e-4 * torch.diagonal(S) + 1.0)
+    # a non-PD window yields info > 0 (cholesky_ex does not raise);
+    # together with the finiteness check it zeroes the update instead
+    # of propagating garbage (reference dpvo/ba.py:12-37 posture)
+    L, info = torch.linalg.cholesky_ex(S)
+    dX = torch.cholesky_solve(y[:, None], L)[:, 0]
+    dZ = Q * (u - E2.T @ dX)
+    ok = (info == 0) & torch.isfinite(dX).all() & torch.isfinite(dZ).all()
+    dX = torch.where(ok, dX, 0.0).reshape(W, 6)
+    dZ = torch.where(ok, dZ, 0.0)
+
+    # window slots t0 + [0, W) that are live (< t1) and in the buffer
+    hi = min(t0 + W, t1, N)
+    poses = poses.clone()
+    if hi > t0:
+        poses[t0:hi] = lie.se3_retr(poses[t0:hi], dX[:hi - t0])
+
+    dslot = depth[s:s + PC]
+    dnew = dslot + dZ
+    dnew = torch.where(dnew > 20.0, 1.0, dnew).clamp(min=1e-4)
+    depth = depth.clone()
+    depth[s:s + PC] = torch.where(touched > 0, dnew, dslot)
+    return poses, depth
+
+
 def bundle_adjust_pairs(poses, centers, depth, intr, target, weight, lmbda,
                         pi, pj, pvalid, t0, t1, fbase,
                         *, M, W, PCF, iterations=2):
@@ -100,7 +141,6 @@ def bundle_adjust_pairs(poses, centers, depth, intr, target, weight, lmbda,
     (GP, M, 2); pi / pj (GP,) frame ids; pvalid (GP,) bool; host ints t0, t1
     (pose window [t0, t1)) and fbase (first frame of the PCF-frame patch
     window); W pose slots. Returns new (poses, depth); inputs untouched."""
-    N = poses.shape[0]
     PC = PCF * M
     for _ in range(iterations):
         r, w, Ji, Jj, Jz = _linearize_pairs(
@@ -139,33 +179,7 @@ def bundle_adjust_pairs(poses, centers, depth, intr, target, weight, lmbda,
         v = _seg((Ji * wr).sum((1, 2)), wi, vi, W)
         v = v + _seg((Jj * wr).sum((1, 2)), wj, vj, W)
 
-        Q = 1.0 / (C + lmbda)
-        S = B.permute(0, 2, 1, 3).reshape(6 * W, 6 * W)
-        E2 = Em.permute(0, 2, 1).reshape(6 * W, PC)
-        EQ = E2 * Q[None, :]
-        S = S - EQ @ E2.T
-        y = v.reshape(6 * W) - EQ @ u
-        S = S + torch.diag(1e-4 * torch.diagonal(S) + 1.0)
-        # a non-PD window yields info > 0 (cholesky_ex does not raise);
-        # together with the finiteness check it zeroes the update instead
-        # of propagating garbage (reference dpvo/ba.py:12-37 posture)
-        L, info = torch.linalg.cholesky_ex(S)
-        dX = torch.cholesky_solve(y[:, None], L)[:, 0]
-        dZ = Q * (u - E2.T @ dX)
-        ok = (info == 0) & torch.isfinite(dX).all() & torch.isfinite(dZ).all()
-        dX = torch.where(ok, dX, 0.0).reshape(W, 6)
-        dZ = torch.where(ok, dZ, 0.0)
-
-        # window slots t0 + [0, W) that are live (< t1) and in the buffer
-        hi = min(t0 + W, t1, N)
-        poses = poses.clone()
-        if hi > t0:
-            poses[t0:hi] = lie.se3_retr(poses[t0:hi], dX[:hi - t0])
-
         s = clamp_start(fbase * M, PC, depth.shape[0])
-        dslot = depth[s:s + PC]
-        dnew = dslot + dZ
-        dnew = torch.where(dnew > 20.0, 1.0, dnew).clamp(min=1e-4)
-        depth = depth.clone()
-        depth[s:s + PC] = torch.where(touched > 0, dnew, dslot)
+        poses, depth = solve_step(poses, depth, B, Em, C, v, u, touched,
+                                  lmbda, t0, t1, s)
     return poses, depth

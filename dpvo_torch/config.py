@@ -77,7 +77,7 @@ cfg = CfgNode(
     MIXED_PRECISION=True,
     # frame ingest: 'rgb' only in this package ('yuv420' is not ported yet)
     UPLOAD_FORMAT='rgb',
-    # read by the hybrid runtime, which this package does not have yet
+    # hybrid runtime: host mirrors in flight ('1' only in this package)
     MIRROR_PIPELINE=1,
     LOOP_CLOSURE=False,
     BACKEND_THRESH=64.0,

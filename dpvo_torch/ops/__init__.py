@@ -1,2 +1,2 @@
-"""Patchify, segment scatter and correlation ops (plain PyTorch + the
-CUDA correlation kernel behind corr_onepass)."""
+"""Patchify, segment scatter and correlation ops (plain PyTorch + the CUDA
+correlation kernels behind corr_onepass and corr_fused)."""

@@ -4,73 +4,41 @@
 TPU kernel dpvo_tpu/ops/corr_onepass.py:_onepass_kernel. For tensors on the
 CPU it runs the plain PyTorch version (ops/corr.py:corr_two_level); for
 CUDA tensors it launches the kernel or raises. The kernel is compiled with
-nvcc from the source in this checkout on first use, into
-build/dpvo_torch_kernels/ (one library per source hash), and bound with
-ctypes: pointers from data_ptr(), the stream from PyTorch's current stream.
+nvcc from the source in this checkout on first use (ops/cuda_lib.py) and
+bound with ctypes: pointers from data_ptr(), the stream from PyTorch's
+current stream.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from . import corr as _plain
+from . import cuda_lib
 
 RADIUS = 3
 P = 3
 C = 128
-SOURCE = Path(__file__).resolve().parent.parent / 'csrc' / 'corr_onepass.cu'
-BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'dpvo_torch_kernels'
-NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 # kernel launches made by corr_two_level (a plain count; callers reset it)
 launches = 0
 
 _lib = None
-_so = None
-
-
-def _nvcc():
-    cuda_home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
-    path = shutil.which('nvcc') or os.path.join(cuda_home, 'bin', 'nvcc')
-    if not os.path.exists(path):
-        raise RuntimeError(f'nvcc not found (looked on PATH and at {path})')
-    return path
 
 
 def build():
-    """Compile (once per source hash) and load the kernel library; later
-    calls return at once. Returns the path of the shared library. The
-    compiler's output (ptxas register / spill counts) is kept beside it as
-    a .log file."""
-    global _lib, _so
-    if _lib is not None:
-        return _so
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f'libcorr_onepass_{tag}.so'
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                               f'{proc.stdout}\n{proc.stderr}')
-        so.with_suffix('.log').write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)    # atomic: concurrent processes agree on one file
-    lib = ctypes.CDLL(str(so))
-    fn = lib.corr_onepass_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib, _so = lib, so
+    """Compile (once per source hash) and load csrc/corr_onepass.cu; later
+    calls return at once. Returns the path of the shared library (the
+    ptxas log sits beside it as a .log file)."""
+    global _lib
+    lib, so = cuda_lib.load('corr_onepass')
+    if _lib is None:
+        fn = lib.corr_onepass_launch
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = lib
     return so
 
 
@@ -134,7 +102,8 @@ def corr_two_level(gmap, fmap1, fmap2, coords, kk, jj, nv=None,
                       dtype=out_dtype, device=dev)
     if E == 0:
         return out
-    build()
+    if _lib is None:
+        build()
     err = _lib.corr_onepass_launch(
         gmap.data_ptr(), fmap1.data_ptr(), fmap2.data_ptr(),
         coords.data_ptr(), kk.data_ptr(), jj.data_ptr(), nv_t.data_ptr(),

@@ -1,0 +1,57 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source `dpvo_torch/csrc/<name>.cu` is compiled with nvcc for sm_90a on
+first use into build/dpvo_torch_kernels/lib<name>_<hash>.so (one library
+per hash of source and flags; the compiler's output, with the ptxas
+register / spill lines, is kept beside it as a .log file) and loaded with
+ctypes. Nothing is built at import: the CPU paths never need nvcc. Sources
+build independently, so callers may build several at once from threads
+(nvcc runs as a subprocess).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'dpvo_torch_kernels'
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+_loaded = {}     # source name -> (ctypes.CDLL, path of the .so)
+
+
+def _nvcc():
+    cuda_home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
+    path = shutil.which('nvcc') or os.path.join(cuda_home, 'bin', 'nvcc')
+    if not os.path.exists(path):
+        raise RuntimeError(f'nvcc not found (looked on PATH and at {path})')
+    return path
+
+
+def load(name):
+    """Compile csrc/<name>.cu (once per source hash) and load it; later
+    calls return the loaded library at once. Returns (CDLL, .so path)."""
+    if name in _loaded:
+        return _loaded[name]
+    source = CSRC / f'{name}.cu'
+    src = source.read_bytes()
+    tag = hashlib.sha1(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    so = BUILD_DIR / f'lib{name}_{tag}.so'
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+                               str(source)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed on {source.name} '
+                               f'({proc.returncode}):\n{proc.stdout}\n'
+                               f'{proc.stderr}')
+        so.with_suffix('.log').write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, so)    # atomic: concurrent processes agree on one file
+    _loaded[name] = (ctypes.CDLL(str(so)), so)
+    return _loaded[name]

@@ -1,23 +1,24 @@
 """VO runtimes (PyTorch port).
 
-Only the device-resident pure-VO runtime (DeviceVO) is ported. Configs that
-dpvo_tpu sends to its hybrid host-driven runtime -- loop closure, classic
-loop closure, GRADIENT_BIAS centroids, visualization -- are not ported yet
-(ROADMAP.md queue 1, "Hybrid runtime" and "Loop closure").
+Two implementations behind one constructor, as in dpvo_tpu:
+  * DeviceVO (runtime/device_vo.py) -- the pure-VO state machine on the
+    device, one keyframe-test read back per frame;
+  * HybridVO (runtime/dpvo.py) -- host-orchestrated, for every other
+    config: GRADIENT_BIAS centroids today. Loop closure, classic loop
+    closure and the viewer are not ported yet and raise
+    NotImplementedError (ROADMAP.md queue 1, items C and D).
 """
 from .device_driver import DeviceVO
+from .dpvo import HybridVO
 
 
 def DPVO(cfg, network, ht=480, wd=640, viz=False, seed=1234, device='cuda'):
     """Constructor with the reference's signature (dpvo/dpvo.py:22)."""
     pure_vo = (not cfg.LOOP_CLOSURE and not cfg.CLASSIC_LOOP_CLOSURE
                and cfg.CENTROID_SEL_STRAT == 'RANDOM' and not viz)
-    if not pure_vo:
-        raise NotImplementedError(
-            'this config needs the hybrid runtime (loop closure, '
-            'GRADIENT_BIAS centroids or viz), which is not ported yet: '
-            'ROADMAP.md queue 1, item "Hybrid runtime"')
-    return DeviceVO(cfg, network, ht, wd, seed=seed, device=device)
+    if pure_vo:
+        return DeviceVO(cfg, network, ht, wd, seed=seed, device=device)
+    return HybridVO(cfg, network, ht, wd, viz=viz, seed=seed, device=device)
 
 
-__all__ = ['DPVO', 'DeviceVO']
+__all__ = ['DPVO', 'DeviceVO', 'HybridVO']

@@ -8,6 +8,8 @@ refinement iterations and reads the trajectory back once.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -15,6 +17,27 @@ from ..models.vonet import RES, load_vonet
 from . import numpy_se3 as nse3
 from .centroid import select_coords
 from .device_vo import CNT_CAP, init_state, vo_frame, vo_refine
+
+
+CORR_IMPLS = ('onepass', 'fused_k', 'fused')
+
+
+def _pick_corr_impl():
+    """The correlation implementation, 'onepass' or 'fused'. DPVO_CORR_IMPL
+    overrides with dpvo_tpu's A/B switch values (device_driver.py:21-40);
+    the default is 'onepass', the one-pass kernel K1 (dpvo_tpu's choice on
+    a TPU where K1 is available). 'fused' runs the planes kernel K2 and the
+    select kernel K3 (ops/corr_fused.py). dpvo_tpu's 'fused_k' (K2 + its
+    select kernel) and 'fused' (K2 + its XLA select) both map to it: the
+    port has one select, K3. On the CPU each runs its plain PyTorch
+    versions."""
+    forced = os.environ.get('DPVO_CORR_IMPL', '')
+    if not forced:
+        return 'onepass'
+    if forced not in CORR_IMPLS:
+        raise ValueError(f'DPVO_CORR_IMPL={forced!r}: expected one of '
+                         f'{CORR_IMPLS}')
+    return 'onepass' if forced == 'onepass' else 'fused'
 
 
 class DeviceVO:
@@ -44,6 +67,7 @@ class DeviceVO:
             kf_thresh=float(cfg.KEYFRAME_THRESH),
             motion_damping=float(cfg.MOTION_DAMPING),
             motion_model=cfg.MOTION_MODEL,
+            corr_impl=_pick_corr_impl(),
         )
         # random weights never pass the learned motion probe; benchmarks and
         # smoke runs set this to reach the steady-state workload
@@ -88,7 +112,7 @@ class DeviceVO:
         s = self._static
         for _ in range(12):
             self.st = vo_refine(self.network, self.st, M=s['M'], W=s['W'],
-                                PCF=s['PCF'])
+                                PCF=s['PCF'], corr_impl=s['corr_impl'])
 
         st = self.st
         poses_np = st.poses.cpu().numpy()

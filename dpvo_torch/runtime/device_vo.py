@@ -27,6 +27,7 @@ from .. import lie
 from ..ba_pairs import bundle_adjust_pairs, clamp_start, pair_centers, \
     pair_depth
 from ..models.vonet import DIM, P
+from ..ops.corr_fused import corr_fused
 from ..ops.corr_onepass import corr_two_level
 
 CNT_CAP = 16384     # max input frames per sequence
@@ -226,9 +227,12 @@ def _set_rows(buf, idx, val):
     return ext[:-1]
 
 
-def _corr_features(st, pi_a, pj_a, pv_a, poses, depth, M, corr_dtype):
+def _corr_features(st, pi_a, pj_a, pv_a, poses, depth, M, corr_dtype,
+                   corr_impl='onepass'):
     """Reprojected coords, correlation features and context for pairs
-    (pi_a, pj_a): (G, M, P, P, 2), (G*M, 882), (G*M, DIM)."""
+    (pi_a, pj_a): (G, M, P, P, 2), (G*M, 882), (G*M, DIM). corr_impl
+    'onepass' runs K1 (edges of invalid pairs are zeros), 'fused' K2 + K3
+    over every edge, as dpvo_tpu does (device_vo.py:458-463)."""
     coords_r = _reproject_pairs(poses, st.centers, depth, st.intr, pi_a, pj_a,
                                 M)
     G = pi_a.shape[0]
@@ -238,15 +242,20 @@ def _corr_features(st, pi_a, pj_a, pv_a, poses, depth, M, corr_dtype):
     ar = torch.arange(M, device=psl.device)
     kk = (psl[:, None] * M + ar[None, :]).reshape(E).int()
     jj = _slot_of(st.fslot, pj_a).repeat_interleave(M).int()
-    nv = pv_a.sum() * M           # valid pairs are a prefix (_compact_pairs)
-    corr = corr_two_level(st.gmap, st.fmap1, st.fmap2,
-                          coords_r.reshape(E, P, P, 2), kk, jj, nv=nv,
-                          out_dtype=corr_dtype)
+    coords_f = coords_r.reshape(E, P, P, 2)
+    if corr_impl == 'onepass':
+        nv = pv_a.sum() * M       # valid pairs are a prefix (_compact_pairs)
+        corr = corr_two_level(st.gmap, st.fmap1, st.fmap2, coords_f, kk, jj,
+                              nv=nv, out_dtype=corr_dtype)
+    else:
+        corr = torch.stack(corr_fused(st.gmap, st.fmap1, st.fmap2, coords_f,
+                                      kk, jj), dim=-1)
     inp = st.imap.view(pmem, M * DIM)[psl].reshape(E, DIM)
     return coords_r, corr.reshape(E, -1), inp
 
 
-def _update_ba(network, st, n1, *, M, W, PCF, iterations):
+def _update_ba(network, st, n1, *, M, W, PCF, iterations,
+               corr_impl='onepass'):
     """`iterations` rounds of correlation + update operator + 2-step BA over
     the live pairs (the body of vo_frame's update loop and of vo_refine).
     W = OPTIMIZATION_WINDOW: the BA's pose slots, ending at keyframe n1."""
@@ -267,7 +276,7 @@ def _update_ba(network, st, n1, *, M, W, PCF, iterations):
     for _ in range(iterations):
         coords_r, corr_feat, inp = _corr_features(
             st, st.pi, st.pj, st.pvalid, st.poses, st.depth, M,
-            network.dtype)
+            network.dtype, corr_impl)
         netf, delta, wgt = network.update_op(
             st.net.reshape(GP * M, DIM), inp, corr_feat, ix_e, jx_e, kk_ids,
             pair_ids, num_segments=GP * M, edge_mask=edge_mask,
@@ -291,7 +300,7 @@ def _update_ba(network, st, n1, *, M, W, PCF, iterations):
 @torch.no_grad()
 def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
              removal_window, kf_thresh, motion_damping, motion_model,
-             force_accept=False):
+             force_accept=False, corr_impl='onepass'):
     """Track one frame (reference dpvo.py:377-473); updates `st` in place.
 
     image (H, W, 3) uint8 tensor on the state's device; aux (M, 4) f32
@@ -365,7 +374,7 @@ def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
         _, corr_feat, inp = _corr_features(
             st, pi_p, pi_p + 1, torch.ones((1,), dtype=torch.bool,
                                            device=dev),
-            st.poses, st.depth, M, ndt)
+            st.poses, st.depth, M, ndt, corr_impl)
         ids = torch.arange(M, device=dev)
         neg = torch.full((M,), -1, dtype=torch.long, device=dev)
         _, delta, _ = network.update_op(
@@ -409,7 +418,8 @@ def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
 
     # ---- update iterations (12 at bootstrap, 1 once initialized) ---- #
     iters = 12 if bootstrap else (1 if st.is_init else 0)
-    _update_ba(network, st, n1, M=M, W=W, PCF=PCF, iterations=iters)
+    _update_ba(network, st, n1, M=M, W=W, PCF=PCF, iterations=iters,
+               corr_impl=corr_impl)
     st.n = n1
 
     # ---- keyframe decision (dpvo.py:266-310) ---- #
@@ -441,8 +451,9 @@ def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
 
 
 @torch.no_grad()
-def vo_refine(network, st, *, M, W, PCF):
+def vo_refine(network, st, *, M, W, PCF, corr_impl='onepass'):
     """One update + BA iteration over the existing pairs (terminate() runs
     this 12 times — reference dpvo.py:181-183)."""
-    _update_ba(network, st, st.n, M=M, W=W, PCF=PCF, iterations=1)
+    _update_ba(network, st, st.n, M=M, W=W, PCF=PCF, iterations=1,
+               corr_impl=corr_impl)
     return st

@@ -154,10 +154,17 @@ def test_buffer_guard():
     assert vo.n == 6
 
 
-@pytest.mark.parametrize('key, value', [('LOOP_CLOSURE', True),
-                                        ('CLASSIC_LOOP_CLOSURE', True),
-                                        ('CENTROID_SEL_STRAT', 'GRADIENT_BIAS')])
-def test_hybrid_configs_not_ported(key, value):
-    with pytest.raises(NotImplementedError, match='Hybrid runtime'):
-        TorchDPVO(_cfg(torch_cfg, **{key: value}), NPZ, ht=H, wd=W,
-                  device='cpu')
+@pytest.mark.parametrize('key, value, ported', [
+    ('LOOP_CLOSURE', True, False), ('CLASSIC_LOOP_CLOSURE', True, False),
+    ('CENTROID_SEL_STRAT', 'GRADIENT_BIAS', True)])
+def test_hybrid_configs_not_ported(key, value, ported):
+    """Configs that are not pure VO go to the hybrid runtime: GRADIENT_BIAS
+    centroids are ported; loop closure raises, naming its ROADMAP item."""
+    from dpvo_torch.runtime import HybridVO
+    c = _cfg(torch_cfg, **{key: value})
+    if ported:
+        assert isinstance(TorchDPVO(c, NPZ, ht=H, wd=W, device='cpu'),
+                          HybridVO)
+        return
+    with pytest.raises(NotImplementedError, match='loop closure .* item D'):
+        TorchDPVO(c, NPZ, ht=H, wd=W, device='cpu')

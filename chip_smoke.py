@@ -5,16 +5,18 @@
 Phases (any failure raises, so the exit code is non-zero):
   1. environment: a CUDA device must exist; prints the card's name and
      power limit as nvidia-smi reports them;
-  2. build: compiles dpvo_torch/csrc/corr_onepass.cu (K1) and
-     dpvo_torch/csrc/corr_fused.cu (K2 planes, K3 tap select) with nvcc,
-     one process per source, started together; prints ptxas's register and
+  2. build: compiles dpvo_torch/csrc/corr_onepass.cu (K1),
+     dpvo_torch/csrc/corr_fused.cu (K2 planes, K3 tap select) and
+     dpvo_torch/csrc/corr_probes.cu (the probes K4-K8) with nvcc, one
+     process per source, started together; prints ptxas's register and
      spill lines of each kernel;
   3. kernels vs plain, at the main paths' shapes (E = 49,152 edges, 36
      frames of 120x160 and 30x40 bf16 maps): K1 (plus the fast.yaml row
      layout, M = 48), K2, K3 (also on the pixels whose spread overflows
      the window, which it must zero), and K2 + K3 against the exact
      correlation on edges whose spread fits the window, with the times of
-     kernel and plain (CUDA events, median of 20);
+     kernel and plain (CUDA events, median of 20) and each kernel's
+     roofline bound;
   4. DeviceVO main path: dpvo_torch.runtime.DPVO with config/default.yaml at
      640x480 and the full-width VONet (artifacts/micro_vonet.npz), 40
      synthetic frames + terminate(); K1 must cover every update iteration;
@@ -27,7 +29,13 @@ Phases (any failure raises, so the exit code is non-zero):
   7. CUDA vs CPU: DeviceVO at 64x96 (K1 vs plain) and HybridVO at 256x320
      with onepass, its default (K1), and with fused_k (K2 + K3), each
      against its plain versions, f32: poses agree and the CUDA run
-     launched its kernels.
+     launched its kernels;
+  8. correlation probes: the four entry points dpvo_torch.scripts.
+     micro_fused_v2 (K4, K5), micro_corr_floor (K6), micro_onepass_dma (K7)
+     and micro_kernel_variants (K8) at their scripts' sizes, launch counts
+     set to 0 just before each and read just after; each probe kernel
+     within its bound of its plain version, launched, timed beside its
+     plain version, its bound and (K6 dots) one torch.bmm.
 The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
@@ -99,29 +107,13 @@ def corr_case(E, F, H1, W1, Ng, seed, kk=None):
     return gmap, f1, f2, coords, kk.astype(np.int32), jj.astype(np.int32)
 
 
-def time_ms(fn, reps=20):
-    """Median device time of fn() over `reps` runs (CUDA events)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
 def kernel_vs_plain(dev, E, F, H1, W1, Ng, nv, seed, kk=None, timed=False):
     """Kernel (bf16 maps) vs the plain version on the same inputs, both with
     f32 output. Tolerance: |kernel - plain| <= 1e-4 * max|plain| -- both sum
     the same 128 f32 products per tap, in another order. Edges >= nv must be
     exact zeros. The bf16 output (the main path's) must be within one bf16
-    rounding of it. Returns (max_abs_err, kernel_ms, plain_ms)."""
+    rounding of it. Returns (max_abs_err, kernel_ms, plain_ms, (bound_ms,
+    side)); the last three None unless timed."""
     import torch
     from dpvo_torch.ops import corr_onepass
     from dpvo_torch.ops.corr import corr_two_level as corr_plain
@@ -149,14 +141,37 @@ def kernel_vs_plain(dev, E, F, H1, W1, Ng, nv, seed, kk=None, timed=False):
     print(f'  E={E} F={F} L1={H1}x{W1} nv={nv}: max|kernel-plain| = {err!r} '
           f'(max|plain| = {scale!r}, bound 1e-4 * max|plain|)', flush=True)
     if not timed:
-        return err, None, None
+        return err, None, None, None
+    from dpvo_torch.scripts._common import time_ms
     args = (*maps, co, kk_t, jj_t)
     k_ms = time_ms(lambda: corr_onepass.corr_two_level(
         *args, nv=nv, out_dtype=torch.bfloat16))
     p_ms = time_ms(lambda: corr_plain(*args, nv=nv, out_dtype=torch.bfloat16))
+    bound = k1_bound(*maps, co, kk_t, jj_t, nv)
     print(f'  time (bf16 out, median of 20): kernel {k_ms!r} ms, '
-          f'plain {p_ms!r} ms', flush=True)
-    return err, k_ms, p_ms
+          f'plain {p_ms!r} ms; bound {bound[0]!r} ms ({bound[1]})',
+          flush=True)
+    return err, k_ms, p_ms, bound
+
+
+def k1_bound(gmap, f1, f2, co, kk, jj, nv):
+    """K1's roofline bound (ms, side) for this run: the g rows, map pixels
+    (each pixel's 8x8 integer taps at both levels), coords, kk and jj of
+    the nv live edges read once, the bf16 output of all E edges written
+    once; the 8x8 tap dots and the bilinear combination of the live
+    edges."""
+    import torch
+    from dpvo_torch.scripts import _common as cm
+    E = co.shape[0]
+    r = torch.arange(8, device=co.device) - 3
+    nb = cm.nbytes(co[:nv], kk[:nv], jj[:nv]) + E * 7 * 7 * 9 * 2 * 2
+    nb += len(set(kk[:nv].tolist())) * 9 * 128 * gmap.element_size()
+    for fm, c in ((f1, co[:nv]), (f2, co[:nv] / 4.0)):
+        xi = c[..., 0].floor().long().reshape(nv, 9, 1, 1)
+        yi = c[..., 1].floor().long().reshape(nv, 9, 1, 1)
+        nb += cm.map_bytes(jj[:nv], yi + r[:, None], xi + r, *fm.shape[:3])
+    flops = 2 * nv * 9 * 64 * 128 * 2 + nv * 9 * 49 * 7 * 2
+    return cm.bound_ms(nb, flops)
 
 
 def fused_vs_plain(dev, E, F, H1, W1, Ng, seed):
@@ -170,7 +185,8 @@ def fused_vs_plain(dev, E, F, H1, W1, Ng, seed):
       * K2 + K3 vs the exact correlation (ops/corr.py, f32) on edges whose
         3x3 spread fits the windows: one bf16 rounding of the plane entries,
         <= 2^-8 max|plane| + 1e-5 max|exact|.
-    Returns ((K2 err, ms, plain ms), (K3 err, ms, plain ms))."""
+    Returns ((K2 err, ms, plain ms, bound), (K3 err, ms, plain ms, bound)),
+    each bound (ms, side) for this run's bytes and operations."""
     import torch
     from dpvo_torch.ops import corr_fused as cf
     from dpvo_torch.ops.corr import corr_two_level as corr_exact
@@ -252,13 +268,26 @@ def fused_vs_plain(dev, E, F, H1, W1, Ng, seed):
           f'edges (spread fits the windows): max|err| = {d!r} (bound '
           f'2^-8 max|plane| + 1e-5 max|exact| = {bound!r})', flush=True)
 
-    k2_ms = time_ms(lambda: cf.planes(*pargs))
-    p2_ms = time_ms(lambda: cf.planes_plain(*pargs))
-    k3_ms = time_ms(lambda: [cf.select_taps(*a) for a in sargs])
-    p3_ms = time_ms(lambda: [cf.select_plain(*a) for a in sargs])
-    print(f'  time (median of 20): K2 {k2_ms!r} ms, plain {p2_ms!r} ms; '
-          f'K3 (both levels) {k3_ms!r} ms, plain {p3_ms!r} ms', flush=True)
-    return (err2, k2_ms, p2_ms), (err3, k3_ms, p3_ms)
+    from dpvo_torch.scripts import _common as cm
+    k2_ms = cm.time_ms(lambda: cf.planes(*pargs))
+    p2_ms = cm.time_ms(lambda: cf.planes_plain(*pargs))
+    k3_ms = cm.time_ms(lambda: [cf.select_taps(*a) for a in sargs])
+    p3_ms = cm.time_ms(lambda: [cf.select_plain(*a) for a in sargs])
+    n1, n2 = cf.WY * cf.WX, cf.WY2 * cf.WX2
+    b2 = cm.bound_ms(
+        len(set(kk)) * 9 * 128 * 2 + cm.nbytes(*pargs[3:], p1, p2) +
+        cm.map_bytes(jj_t, *cm.window_yx(w1[4], w1[5], cf.WX, n1), F, H1, W1)
+        + cm.map_bytes(jj_t, *cm.window_yx(w2[4], w2[5], cf.WX2, n2), F, H2,
+                       W2), 2 * E * 9 * (n1 + n2) * 128)
+    # K3: the planes, six per-pixel arrays per level, the f32 taps; per tap
+    # the four validity-folded weights (6 operations) and the bilinear (6)
+    b3 = cm.bound_ms(cm.nbytes(p1, p2, *sel) +
+                     sum(cm.nbytes(*a[1:7]) for a in sargs),
+                     2 * E * 441 * 12)
+    print(f'  time (median of 20): K2 {k2_ms!r} ms, plain {p2_ms!r} ms, '
+          f'bound {b2[0]!r} ms ({b2[1]}); K3 (both levels) {k3_ms!r} ms, '
+          f'plain {p3_ms!r} ms, bound {b3[0]!r} ms ({b3[1]})', flush=True)
+    return (err2, k2_ms, p2_ms, b2), (err3, k3_ms, p3_ms, b3)
 
 
 def device_time(trace_path):
@@ -454,6 +483,41 @@ def small_cpu_vs_cuda(dev):
               f'{launches})', flush=True)
 
 
+def probes():
+    """Phase 8: the four probe entry points at their scripts' sizes, the
+    launch counts set to 0 just before each and read just after. Each
+    main holds every kernel against its plain version (and raises off the
+    bound); here each probe kernel must also have launched. Returns the
+    kernels' JSON entries, one per probe instantiation."""
+    import torch
+    from dpvo_torch.ops import corr_probes
+    from dpvo_torch.scripts import (micro_corr_floor, micro_fused_v2,
+                                    micro_kernel_variants, micro_onepass_dma)
+    entries = []
+    for mod in (micro_fused_v2, micro_corr_floor, micro_onepass_dma,
+                micro_kernel_variants):
+        corr_probes.reset_launches()
+        res = mod.main(device='cuda', scale=1.0, seed=0)
+        counts = dict(corr_probes.launches)
+        for row in res['variants'].values():
+            k = row['kernel']
+            check(counts[k] > 0, f'{row["name"]}: kernel never launched')
+            check(row['ms'] is not None, f'{row["name"]}: not timed')
+            entries.append(dict(
+                name=f'probe_{k}', route='cuda',
+                source='dpvo_torch/csrc/corr_probes.cu',
+                replaces=row['replaces'], launches=counts[k],
+                max_abs_err=row['max_abs_err'], ms=row['ms'],
+                plain_ms=row['plain_ms'], bound_ms=row['bound_ms'],
+                bound_by=row['bound_by'], library_ms=row['library_ms']))
+        del res
+        torch.cuda.empty_cache()
+    names = {e['name'] for e in entries}
+    check(len(names) == len(corr_probes.launches),
+          f'probe instantiations run: {sorted(names)}')
+    return entries
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -464,20 +528,20 @@ def main():
     dev = torch.device('cuda')
     name = torch.cuda.get_device_name(0)
 
-    print('[1/7] environment', flush=True)
+    print('[1/8] environment', flush=True)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f'  torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.device_count()} device(s): {name}')
 
-    print('[2/7] build', flush=True)
+    print('[2/8] build', flush=True)
     from concurrent.futures import ThreadPoolExecutor
-    from dpvo_torch.ops import corr_fused, corr_onepass
+    from dpvo_torch.ops import corr_fused, corr_onepass, corr_probes
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:       # one nvcc per source, together
-        sos = [f.result() for f in [ex.submit(corr_onepass.build),
-                                    ex.submit(corr_fused.build)]]
+    builds = (corr_onepass.build, corr_fused.build, corr_probes.build)
+    with ThreadPoolExecutor(len(builds)) as ex:  # one nvcc per source
+        sos = [f.result() for f in [ex.submit(b) for b in builds]]
     print(f'  {", ".join(so.name for so in sos)} in '
           f'{time.perf_counter() - t0:.1f} s')
     for so in sos:
@@ -486,23 +550,23 @@ def main():
                     or 'spill' in line:
                 print('  ' + line.strip())
 
-    print('[3/7] kernels vs plain', flush=True)
-    err, k_ms, p_ms = kernel_vs_plain(dev, E=49152, F=36, H1=120, W1=160,
-                                      Ng=36 * 96, nv=40013, seed=0,
-                                      timed=True)
+    print('[3/8] kernels vs plain', flush=True)
+    err, k_ms, p_ms, b1 = kernel_vs_plain(dev, E=49152, F=36, H1=120,
+                                          W1=160, Ng=36 * 96, nv=40013,
+                                          seed=0, timed=True)
     M, G = 48, 320                  # fast.yaml: M = 48, 320 pair slots
     kk = (np.repeat(np.arange(G) % 36, M) * M + np.tile(np.arange(M), G))
-    err48, _, _ = kernel_vs_plain(dev, E=M * G, F=36, H1=120, W1=160,
+    err48, *_ = kernel_vs_plain(dev, E=M * G, F=36, H1=120, W1=160,
                                   Ng=36 * M, nv=300 * M, seed=1, kk=kk)
     k2, k3 = fused_vs_plain(dev, E=49152, F=36, H1=120, W1=160, Ng=36 * 96,
                             seed=2)
 
-    print('[4/7] DeviceVO main path', flush=True)
+    print('[4/8] DeviceVO main path', flush=True)
     dv, dv_iters = main_path(dev, 'default.yaml', 'onepass')
     check(dv['corr_onepass'] >= dv_iters, f'K1 launched '
           f'{dv["corr_onepass"]} times, expected >= {dv_iters}')
 
-    print('[5/7] hybrid main path', flush=True)
+    print('[5/8] hybrid main path', flush=True)
     hy, hy_iters = main_path(dev, 'default.yaml + GRADIENT_BIAS', 'fused_k',
                              CENTROID_SEL_STRAT='GRADIENT_BIAS')
     # one K2 launch per update iteration, one K3 launch per level
@@ -511,7 +575,7 @@ def main():
     check(hy['corr_select'] >= 2 * hy_iters, f'K3 launched '
           f'{hy["corr_select"]} times, expected >= {2 * hy_iters}')
 
-    print('[6/7] DeviceVO with fused_k', flush=True)
+    print('[6/8] DeviceVO with fused_k', flush=True)
     dk, dk_iters = main_path(dev, 'default.yaml', 'fused_k', n_frames=12,
                              measure=False)
     check(dk['corr_planes'] >= dk_iters and
@@ -519,26 +583,28 @@ def main():
           f'K2 / K3 launched {dk}, expected >= {dk_iters} / '
           f'{2 * dk_iters}')
 
-    print('[7/7] CUDA vs CPU', flush=True)
+    print('[7/8] CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev)
+
+    print('[8/8] correlation probes', flush=True)
+    probe_entries = probes()
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
+        return dict(name=name, route='cuda', source=source,
+                    replaces=replaces, launches=launches, max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                    bound_by=bound[1], library_ms=None)
 
     print(smi)
     print(json.dumps({'kernels': [
-        {'name': 'corr_onepass', 'route': 'cuda',
-         'source': 'dpvo_torch/csrc/corr_onepass.cu',
-         'replaces': 'dpvo_tpu/ops/corr_onepass.py:196',
-         'launches': dv['corr_onepass'], 'max_abs_err': max(err, err48),
-         'ms': k_ms, 'plain_ms': p_ms},
-        {'name': 'corr_planes', 'route': 'cuda',
-         'source': 'dpvo_torch/csrc/corr_fused.cu',
-         'replaces': 'dpvo_tpu/ops/corr_fused.py:94',
-         'launches': hy['corr_planes'], 'max_abs_err': k2[0],
-         'ms': k2[1], 'plain_ms': k2[2]},
-        {'name': 'corr_select', 'route': 'cuda',
-         'source': 'dpvo_torch/csrc/corr_fused.cu',
-         'replaces': 'dpvo_tpu/ops/corr_select.py:63',
-         'launches': hy['corr_select'], 'max_abs_err': k3[0],
-         'ms': k3[1], 'plain_ms': k3[2]}]}))
+        entry('corr_onepass', 'dpvo_torch/csrc/corr_onepass.cu',
+              'dpvo_tpu/ops/corr_onepass.py:196', dv['corr_onepass'],
+              max(err, err48), k_ms, p_ms, b1),
+        entry('corr_planes', 'dpvo_torch/csrc/corr_fused.cu',
+              'dpvo_tpu/ops/corr_fused.py:94', hy['corr_planes'], *k2),
+        entry('corr_select', 'dpvo_torch/csrc/corr_fused.cu',
+              'dpvo_tpu/ops/corr_select.py:63', hy['corr_select'], *k3),
+        *probe_entries]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}))

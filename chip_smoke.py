@@ -9,14 +9,16 @@ Phases (any failure raises, so the exit code is non-zero):
      dpvo_torch/csrc/corr_fused.cu (K2 planes, K3 tap select) and
      dpvo_torch/csrc/corr_probes.cu (the probes K4-K8) with nvcc, one
      process per source, started together; prints ptxas's register and
-     spill lines of each kernel;
+     spill lines of each kernel, and K1's threads, shared memory and blocks
+     per SM for bf16 and f32 maps;
   3. kernels vs plain, at the main paths' shapes (E = 49,152 edges, 36
      frames of 120x160 and 30x40 bf16 maps): K1 (plus the fast.yaml row
-     layout, M = 48), K2, K3 (also on the pixels whose spread overflows
-     the window, which it must zero), and K2 + K3 against the exact
-     correlation on edges whose spread fits the window, with the times of
-     kernel and plain (CUDA events, median of 20) and each kernel's
-     roofline bound;
+     layout, M = 48; the pixels per branch and level of its union-box rule,
+     both branches must run, and the rows it stages), K2, K3 (also on the
+     pixels whose spread overflows the window, which it must zero), and
+     K2 + K3 against the exact correlation on edges whose spread fits the
+     window, with the times of kernel and plain (CUDA events, median of 20)
+     and each kernel's roofline bound;
   4. DeviceVO main path: dpvo_torch.runtime.DPVO with config/default.yaml at
      640x480 and the full-width VONet (artifacts/micro_vonet.npz), 40
      synthetic frames + terminate(); K1 must cover every update iteration;
@@ -26,10 +28,11 @@ Phases (any failure raises, so the exit code is non-zero):
      K3 must cover every update iteration; the same measurements;
   6. DeviceVO with DPVO_CORR_IMPL=fused_k, 12 frames + terminate() at
      640x480: K2 and K3 launch there too;
-  7. CUDA vs CPU: DeviceVO at 64x96 (K1 vs plain) and HybridVO at 256x320
-     with onepass, its default (K1), and with fused_k (K2 + K3), each
-     against its plain versions, f32: poses agree and the CUDA run
-     launched its kernels;
+  7. CUDA vs CPU: DeviceVO at 64x96 (K1 vs plain) in f32 and in bf16
+     (MIXED_PRECISION, the main path's K1), and HybridVO at 256x320 with
+     onepass, its default (K1), and with fused_k (K2 + K3), f32, each
+     against its plain versions: poses agree and the CUDA run launched its
+     kernels;
   8. correlation probes: the four entry points dpvo_torch.scripts.
      micro_fused_v2 (K4, K5), micro_corr_floor (K6), micro_onepass_dma (K7)
      and micro_kernel_variants (K8) at their scripts' sizes, launch counts
@@ -112,8 +115,11 @@ def kernel_vs_plain(dev, E, F, H1, W1, Ng, nv, seed, kk=None, timed=False):
     f32 output. Tolerance: |kernel - plain| <= 1e-4 * max|plain| -- both sum
     the same 128 f32 products per tap, in another order. Edges >= nv must be
     exact zeros. The bf16 output (the main path's) must be within one bf16
-    rounding of it. Returns (max_abs_err, kernel_ms, plain_ms, (bound_ms,
-    side)); the last three None unless timed."""
+    rounding of it. Both of the kernel's branches (taps from the union box,
+    taps from global memory for windows that overflow it; box_fits) must
+    run on the live edges and be within the bound on their own. Returns
+    (max_abs_err, kernel_ms, plain_ms, (bound_ms, side)); the last three
+    None unless timed."""
     import torch
     from dpvo_torch.ops import corr_onepass
     from dpvo_torch.ops.corr import corr_two_level as corr_plain
@@ -133,6 +139,23 @@ def kernel_vs_plain(dev, E, F, H1, W1, Ng, nv, seed, kk=None, timed=False):
     check(err <= 1e-4 * scale, f'kernel vs plain: max |err| {err} > '
           f'1e-4 * {scale}')
     check(bool((out[nv:] == 0).all()), 'nonzero output past nv')
+    fits = corr_onepass.box_fits(co[:nv], H1, W1, H1 // 4, W1 // 4)
+    d = (out[:nv] - ref[:nv]).abs()
+    for lvl in range(2):
+        n_fit = int(fits[..., lvl].sum())
+        n_ovf = fits[..., lvl].numel() - n_fit
+        check(n_fit > 0 and n_ovf > 0, f'level {lvl + 1}: pixels in the box '
+              f'{n_fit}, overflowing {n_ovf}: a branch did not run')
+        errs = [d[..., lvl].masked_fill(~m[:, None, None], 0).max().item()
+                for m in (fits[..., lvl], ~fits[..., lvl])]
+        print(f'  level {lvl + 1}: {n_fit} live pixels from the union box '
+              f'(max|kernel-plain| {errs[0]!r}), {n_ovf} overflowing it, '
+              f'from global memory ({errs[1]!r})', flush=True)
+    rows = corr_onepass.box_rows(co[:nv], H1, W1, H1 // 4, W1 // 4)
+    staged = (int(rows.sum()) + nv * 9) * 128 * 2
+    print(f'  rows staged in shared memory: {rows.float().mean(0).tolist()} '
+          f'per live edge at L1 / L2, with the g rows {staged / nv / 1e3!r} '
+          f'KB per live edge, {staged / 1e9!r} GB per call', flush=True)
     out16 = corr_onepass.corr_two_level(*maps, co, kk_t, jj_t, nv=nv,
                                         out_dtype=torch.bfloat16)
     err16 = (out16.float() - ref).abs() - 2 ** -8 * ref.abs()
@@ -450,16 +473,20 @@ def small_cpu_vs_cuda(dev):
     from dpvo_torch.config import cfg as base_cfg
 
     gb = dict(CENTROID_SEL_STRAT='GRADIENT_BIAS')
-    for label, (H, W), impl, extra, kernels in (
-            ('DeviceVO', (64, 96), 'onepass', {}, ('corr_onepass',)),
-            ('HybridVO', (256, 320), 'onepass', gb, ('corr_onepass',)),
+    for label, (H, W), impl, extra, kernels, mixed, tol in (
+            ('DeviceVO', (64, 96), 'onepass', {}, ('corr_onepass',), False,
+             1e-3),
+            ('DeviceVO', (64, 96), 'onepass', {}, ('corr_onepass',), True,
+             1e-2),
+            ('HybridVO', (256, 320), 'onepass', gb, ('corr_onepass',), False,
+             1e-3),
             ('HybridVO', (256, 320), 'fused_k', gb,
-             ('corr_planes', 'corr_select'))):
+             ('corr_planes', 'corr_select'), False, 1e-3)):
         cfg = base_cfg.clone()
         cfg.merge_from_file(CONFIG)
         cfg.PATCHES_PER_FRAME = 8
         cfg.BUFFER_SIZE = 64
-        cfg.MIXED_PRECISION = False
+        cfg.MIXED_PRECISION = mixed
         for k, v in extra.items():
             cfg[k] = v
         frames = synthetic_frames(16, H, W, seed=1)
@@ -474,13 +501,15 @@ def small_cpu_vs_cuda(dev):
             if d == dev:
                 launches = read_launches()
         err = float(np.abs(out[0] - out[1]).max())
+        prec = 'bf16' if mixed else 'f32'
         check(np.isfinite(out[0]).all(), f'{label}: poses not finite')
-        check(err <= 1e-3, f'{label}: CUDA vs CPU poses differ by {err}')
+        check(err <= tol, f'{label} {prec}: CUDA vs CPU poses differ by '
+              f'{err}')
         check(all(launches[k] > 0 for k in kernels),
               f'{label} {impl} on CUDA: launches {launches}')
-        print(f'  {label} {H}x{W}, 16 frames, {impl}: max |pose CUDA - pose '
-              f'CPU| = {err!r} (bound 1e-3; n = {slam.n}; CUDA launches '
-              f'{launches})', flush=True)
+        print(f'  {label} {H}x{W} {prec}, 16 frames, {impl}: max |pose CUDA '
+              f'- pose CPU| = {err!r} (bound {tol!r}; n = {slam.n}; CUDA '
+              f'launches {launches})', flush=True)
 
 
 def probes():
@@ -549,6 +578,10 @@ def main():
             if 'Compiling entry' in line or 'registers' in line \
                     or 'spill' in line:
                 print('  ' + line.strip())
+    for maps in (torch.bfloat16, torch.float32):
+        thr, smem, blocks = corr_onepass.occupancy(maps, torch.bfloat16)
+        print(f'  K1 with {maps} maps: {thr} threads and {smem} B of shared '
+              f'memory per block, {blocks} blocks per SM')
 
     print('[3/8] kernels vs plain', flush=True)
     err, k_ms, p_ms, b1 = kernel_vs_plain(dev, E=49152, F=36, H1=120,

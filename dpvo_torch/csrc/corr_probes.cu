@@ -21,7 +21,8 @@
 // of output, so at the bf16 tensor-core peak (989 TFLOP/s) the FLOPs take
 // 4-40x less time than moving the planes, g rows and maps at 3.35 TB/s.
 // What the design does about it: the dots run on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate), so the arithmetic stays far
+// (mma.sync m16n8k16, bf16 in, f32 accumulate; the building blocks are in
+// mma_bf16.cuh, shared with K1's bf16 kernel), so the arithmetic stays far
 // below the memory time, and every byte goes through a coalesced path:
 //   * the 9 g rows of an edge are staged once in shared memory and held by
 //     every warp as the A operand (rows 9-15 zero) in 32 registers;
@@ -48,86 +49,17 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace corr_mma;   // GFrag, load_gfrag, tile_dot, stage_tile, ...
 
-constexpr int kC = 128;                 // channels
-constexpr int kP2 = 9;                  // 3 x 3 patch pixels
-constexpr int kRowU4 = kC / 8;          // 16-byte words per channel row
-constexpr int kChunks = kC / 32;        // 32 channels: two mma k-steps
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;   // one edge per 128 threads
 constexpr int kFirst = 49;              // K7 keeps 49 columns per level
 
 enum Epilogue { kPlanes = 0, kRoll = 1, kFirst49 = 2 };
-
-// A operand of m16n8k16: this lane's words of g rows (lane / 4) and 8, for
-// each 32-channel chunk. Lane (grp, t) holds channels 32c + 8t .. + 7.
-struct GFrag {
-  uint4 lo[kChunks];
-  uint4 hi[kChunks];
-};
-
-__device__ __forceinline__ void stage_g(const bf16* __restrict__ g,
-                                        uint4* s_g, int tid, int nthr) {
-  const uint4* src = reinterpret_cast<const uint4*>(g);
-  for (int i = tid; i < kP2 * kRowU4; i += nthr) s_g[i] = __ldg(src + i);
-}
-
-__device__ __forceinline__ GFrag load_gfrag(const uint4* s_g) {
-  const int lane = threadIdx.x & 31, grp = lane >> 2, t = lane & 3;
-  GFrag a;
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    a.lo[c] = s_g[grp * kRowU4 + 4 * c + t];
-    a.hi[c] = grp == 0 ? s_g[8 * kRowU4 + 4 * c + t] : make_uint4(0, 0, 0, 0);
-  }
-  return a;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// The dot of the 9 g rows with 8 channel rows, one per lane group; `row` is
-// this lane's (nullptr reads as zeros). k-step h of chunk c takes, in its
-// slots 2t, 2t + 1 / 2t + 8, 2t + 9, the channels 32c + 8t + 4h + {0, 1} /
-// {2, 3}, in A and B alike. Out: d[0], d[1] = g row grp at positions 2t,
-// 2t + 1; d[2], d[3] = g row 8 there (grp 0; zero rows elsewhere).
-__device__ __forceinline__ void tile_dot(const GFrag& a, const bf16* row,
-                                         float (&d)[4]) {
-  const int t = threadIdx.x & 3;
-  d[0] = d[1] = d[2] = d[3] = 0.f;
-  uint4 b[kChunks];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-    b[c] = row ? __ldg(reinterpret_cast<const uint4*>(row) + 4 * c + t)
-               : make_uint4(0, 0, 0, 0);
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    mma_bf16(d, a.lo[c].x, a.hi[c].x, a.lo[c].y, a.hi[c].y, b[c].x, b[c].y);
-    mma_bf16(d, a.lo[c].z, a.hi[c].z, a.lo[c].w, a.hi[c].w, b[c].z, b[c].w);
-  }
-}
-
-// stage: f32 [9][ns], positions q0 .. q0 + 7 of this tile
-__device__ __forceinline__ void stage_tile(const float (&d)[4], float* stage,
-                                           int ns, int q0) {
-  const int lane = threadIdx.x & 31, grp = lane >> 2, t = lane & 3;
-  stage[grp * ns + q0 + 2 * t] = d[0];
-  stage[grp * ns + q0 + 2 * t + 1] = d[1];
-  if (grp == 0) {
-    stage[8 * ns + q0 + 2 * t] = d[2];
-    stage[8 * ns + q0 + 2 * t + 1] = d[3];
-  }
-}
 
 // A window of wx columns at (by, bx) of one frame; position q is row q / wx,
 // column q % wx. Positions outside the map (or a missing frame) read zero.

@@ -7,6 +7,11 @@ CUDA tensors it launches the kernel or raises. The kernel is compiled with
 nvcc from the source in this checkout on first use (ops/cuda_lib.py) and
 bound with ctypes: pointers from data_ptr(), the stream from PyTorch's
 current stream.
+
+With bf16 maps the kernel stages each edge's union box per level in shared
+memory and takes a pixel whose window does not fit it from global memory;
+`box_fits` states that rule in plain PyTorch, so tests can see which branch
+each pixel takes (both compute the same output).
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ from . import cuda_lib
 RADIUS = 3
 P = 3
 C = 128
+D = 2 * RADIUS + 2     # integer taps per axis of a window
+BOX = 12               # the union box's side cap, both levels (kBox)
 
 # kernel launches made by corr_two_level (a plain count; callers reset it)
 launches = 0
@@ -38,8 +45,69 @@ def build():
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        occ = lib.corr_onepass_occupancy
+        occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+        occ.restype = ctypes.c_int
         _lib = lib
     return so
+
+
+def occupancy(in_dtype, out_dtype, device=0):
+    """(threads, shared bytes, blocks per SM) of the kernel that these
+    dtypes select, as the CUDA runtime reports it on `device`."""
+    if _lib is None:
+        build()
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = _lib.corr_onepass_occupancy(
+        int(in_dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        device, *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f'corr_onepass_occupancy: CUDA error {err}')
+    return tuple(v.value for v in vals)
+
+
+def _level_boxes(c, H, W):
+    """Window origins (x0, y0), each (E, 9) int64, and the union box (bx,
+    by, bw, bh), each (E,), of one level: floor(c) - R, clamped to +-(dim +
+    16) first (NaN to -16, as the kernel's fmaxf / fminf do); the box spans
+    the nine windows, at most BOX rows and columns from (bx, by)."""
+    def origin(v, dim):
+        f = torch.floor(v.reshape(v.shape[0], P * P))
+        f = torch.where(torch.isnan(f), torch.full_like(f, -16.0), f)
+        return f.clamp(-16.0, dim + 16.0).long() - RADIUS
+    x0, y0 = origin(c[..., 0], W), origin(c[..., 1], H)
+    bx, by = x0.min(1).values, y0.min(1).values
+    bw = (x0.max(1).values - bx + D).clamp(max=BOX)
+    bh = (y0.max(1).values - by + D).clamp(max=BOX)
+    return x0, y0, bx, by, bw, bh
+
+
+def _levels(coords, H1, W1, H2, W2):
+    return ((coords, H1, W1), (coords / 4.0, H2, W2))
+
+
+def box_fits(coords, H1, W1, H2, W2):
+    """Which branch the bf16 kernel takes for each pixel: (E, 3, 3, 2) bool
+    [py, px, lvl], True where the pixel's 8x8 window lies inside its
+    level's union box (taps from shared memory), False where it overflows
+    (taps from global memory). coords (E, 3, 3, 2) f32 at level-1 scale;
+    (H1, W1), (H2, W2) the two maps' sizes."""
+    out = []
+    for c, H, W in _levels(coords, H1, W1, H2, W2):
+        x0, y0, bx, by, _, _ = _level_boxes(c, H, W)
+        out.append((x0 - bx[:, None] <= BOX - D) &
+                   (y0 - by[:, None] <= BOX - D))
+    return torch.stack(out, -1).reshape(coords.shape[0], P, P, 2)
+
+
+def box_rows(coords, H1, W1, H2, W2):
+    """(E, 2) int64: the rows of 128 channels the bf16 kernel stages per
+    edge and level (bw * bh of the union box)."""
+    rows = []
+    for c, H, W in _levels(coords, H1, W1, H2, W2):
+        *_, bw, bh = _level_boxes(c, H, W)
+        rows.append(bw * bh)
+    return torch.stack(rows, -1)
 
 
 def _check_map(name, t, dev):

@@ -2,11 +2,11 @@
 
 Each source `dpvo_torch/csrc/<name>.cu` is compiled with nvcc for sm_90a on
 first use into build/dpvo_torch_kernels/lib<name>_<hash>.so (one library
-per hash of source and flags; the compiler's output, with the ptxas
-register / spill lines, is kept beside it as a .log file) and loaded with
-ctypes. Nothing is built at import: the CPU paths never need nvcc. Sources
-build independently, so callers may build several at once from threads
-(nvcc runs as a subprocess).
+per hash of the source, every csrc/*.cuh header and the flags; the
+compiler's output, with the ptxas register / spill lines, is kept beside it
+as a .log file) and loaded with ctypes. Nothing is built at import: the CPU
+paths never need nvcc. Sources build independently, so callers may build
+several at once from threads (nvcc runs as a subprocess).
 """
 from __future__ import annotations
 
@@ -33,14 +33,24 @@ def _nvcc():
     return path
 
 
+def source_hash(source):
+    """12 hex digits of the sha1 of `source`, every csrc/*.cuh (a source
+    may include any of them) and the nvcc flags."""
+    h = hashlib.sha1(source.read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def load(name):
-    """Compile csrc/<name>.cu (once per source hash) and load it; later
-    calls return the loaded library at once. Returns (CDLL, .so path)."""
+    """Compile csrc/<name>.cu (once per hash of it, the headers and the
+    flags) and load it; later calls return the loaded library at once.
+    Returns (CDLL, .so path)."""
     if name in _loaded:
         return _loaded[name]
     source = CSRC / f'{name}.cu'
-    src = source.read_bytes()
-    tag = hashlib.sha1(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = source_hash(source)
     so = BUILD_DIR / f'lib{name}_{tag}.so'
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

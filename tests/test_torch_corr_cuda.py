@@ -1,7 +1,12 @@
 """The hand-written correlation kernel against its plain PyTorch version,
 on the card. Skips where no CUDA device exists (the kernel has no CPU or
 interpret mode); run it on a GPU host with
-`python -m pytest tests/test_torch_corr_cuda.py -q`."""
+`python -m pytest tests/test_torch_corr_cuda.py -q`.
+
+With bf16 maps the kernel takes a pixel's taps from its edge's union box in
+shared memory or, where the window overflows the box, from global memory;
+ops/corr_onepass.py:box_fits says which, and the cases below hold each
+branch against the plain version on its own."""
 import numpy as np
 import pytest
 import torch
@@ -63,3 +68,75 @@ def test_kernel_contiguous_rows_m48(cuda):
     out, ref = _run(case, cuda, torch.bfloat16, torch.float32, M * G)
     scale = ref.abs().max().item()
     assert (out - ref).abs().max().item() <= 1e-5 * scale
+
+
+def _spread_case(E, sp_lo, sp_hi, seed, H1=120, W1=160):
+    """corr_case's maps with every edge's 3x3 pixel spread drawn from
+    [sp_lo, sp_hi] px (times 2 over the patch) around interior centres."""
+    gmap, f1, f2, _, kk, jj = make_case(E, F=3, H1=H1, W1=W1, Ng=64,
+                                        seed=seed)
+    rng = np.random.RandomState(seed + 100)
+    c = np.stack([rng.uniform(8, W1 - 9, E), rng.uniform(8, H1 - 9, E)], -1)
+    sp = rng.uniform(sp_lo, sp_hi, (E, 1, 1))
+    off = np.linspace(-1.0, 1.0, 3)
+    coords = np.stack(np.broadcast_arrays(
+        c[:, 0, None, None] + sp * off[None, None, :],
+        c[:, 1, None, None] + sp * off[None, :, None]), -1)
+    coords += rng.uniform(-.3, .3, coords.shape)
+    return gmap, f1, f2, coords.astype(np.float32), kk, jj
+
+
+def _branch_errors(case, dev, dtype, out_dtype, nv):
+    """max |kernel - plain| over the live pixels of each branch (fit, overflow)
+    and the tolerance, from one launch."""
+    out, ref = _run(case, dev, dtype, out_dtype, nv)
+    H1, W1 = case[1].shape[1:3]
+    fits = corr_onepass.box_fits(torch.from_numpy(case[3]).to(dev), H1, W1,
+                                 H1 // 4, W1 // 4)
+    live = torch.arange(out.shape[0], device=dev)[:, None, None, None] < nv
+    d = (out - ref).abs()
+    scale = ref.abs().max().item()
+    tol = 1e-5 * scale if out_dtype == torch.float32 else 2 ** -8 * scale
+    # masks (E, 1, 1, 3, 3, 2) over out's (E, dx, dy, py, px, lvl)
+    errs = [d.masked_fill(~(m & live)[:, None, None], 0).max().item()
+            for m in (fits, ~fits)]
+    assert bool((out[nv:] == 0).all())
+    return fits[:nv], errs, tol
+
+
+@pytest.mark.parametrize('dtype, out_dtype', [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_both_branches_match_plain(cuda, dtype, out_dtype):
+    """corr_case: 1/16 of the edges spread up to ~18 px, so some pixels
+    overflow their box at both levels; every other edge fits. f32 maps take
+    the unchanged f32 kernel; the same pixels are held apart all the same."""
+    E, nv = 3072, 2900
+    case = make_case(E, F=3, H1=120, W1=160, Ng=64, seed=2)
+    fits, (err_fit, err_ovf), tol = _branch_errors(case, cuda, dtype,
+                                                   out_dtype, nv)
+    for lvl in range(2):
+        assert fits[..., lvl].any() and not fits[..., lvl].all(), lvl
+    assert err_fit <= tol, (err_fit, tol)
+    assert err_ovf <= tol, (err_ovf, tol)
+
+
+def test_every_edge_overflows(cuda):
+    """Spreads of 24-40 px: every edge has pixels outside its box at both
+    levels."""
+    E = 768
+    case = _spread_case(E, 12.0, 20.0, seed=3)
+    fits, (err_fit, err_ovf), tol = _branch_errors(
+        case, cuda, torch.bfloat16, torch.float32, E)
+    assert not fits.reshape(E, 9, 2).all(1).any()
+    assert err_fit <= tol and err_ovf <= tol, (err_fit, err_ovf, tol)
+
+
+def test_no_edge_overflows(cuda):
+    """Spreads under 2 px: every pixel's window fits its box."""
+    E = 768
+    case = _spread_case(E, 0.2, 0.7, seed=4)
+    fits, (err_fit, err_ovf), tol = _branch_errors(
+        case, cuda, torch.bfloat16, torch.float32, E)
+    assert fits.all()
+    assert err_fit <= tol and err_ovf == 0.0, (err_fit, err_ovf, tol)

@@ -9,8 +9,10 @@ Phases (any failure raises, so the exit code is non-zero):
      dpvo_torch/csrc/corr_fused.cu (K2 planes, K3 tap select) and
      dpvo_torch/csrc/corr_probes.cu (the probes K4-K8) with nvcc, one
      process per source, started together; prints ptxas's register and
-     spill lines of each kernel, and K1's threads, shared memory and blocks
-     per SM for bf16 and f32 maps;
+     spill lines of each kernel, K1's threads, shared memory and blocks
+     per SM for bf16 and f32 maps, and K6 dots' persistent launch shape
+     (grid, threads, dynamic shared memory, registers, blocks per SM and
+     its ring);
   3. kernels vs plain, at the main paths' shapes (E = 49,152 edges, 36
      frames of 120x160 and 30x40 bf16 maps): K1 (plus the fast.yaml row
      layout, M = 48; the pixels per branch and level of its union-box rule,
@@ -28,20 +30,22 @@ Phases (any failure raises, so the exit code is non-zero):
      K3 must cover every update iteration; the same measurements;
   6. DeviceVO with DPVO_CORR_IMPL=fused_k, 12 frames + terminate() at
      640x480: K2 and K3 launch there too;
-  7. CUDA vs CPU: DeviceVO at 64x96 (K1 vs plain) in f32 and in bf16
-     (MIXED_PRECISION, the main path's K1), and HybridVO at 256x320 with
-     onepass, its default (K1), and with fused_k (K2 + K3), f32, each
-     against its plain versions: poses agree and the CUDA run launched its
-     kernels;
+  7. CUDA vs CPU: DeviceVO at 64x96 (K1 vs plain) and HybridVO at
+     256x320 with onepass, its default (K1), and with fused_k (K2 + K3),
+     each in f32 and in bf16 (MIXED_PRECISION: K1's box kernel, K2 / K3 on
+     bf16 maps), each against its plain versions: poses agree and the CUDA
+     run launched its kernels;
   8. correlation probes: the four entry points dpvo_torch.scripts.
      micro_fused_v2 (K4, K5), micro_corr_floor (K6), micro_onepass_dma (K7)
      and micro_kernel_variants (K8) at their scripts' sizes, launch counts
      set to 0 just before each and read just after; each probe kernel
      within its bound of its plain version, launched, timed beside its
-     plain version, its bound and (K6 dots) one torch.bmm.
+     plain version, its bound and (K6 dots) one torch.bmm, timed in turns
+     with the kernel (kernel / library ratio printed).
 The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
+import itertools
 import json
 import os
 import subprocess
@@ -469,19 +473,18 @@ def small_cpu_vs_cuda(dev):
     HybridVO at 256x320, M = 8, 16 frames, with onepass (its default: K1
     over the padded edge table) and with fused_k (L2 16x20, so K2 + K3 vs
     their plain versions; the planes may round to bf16 one step apart where
-    the f32 sums differ in their last bits), bound 1e-3 as well."""
+    the f32 sums differ in their last bits), bound 1e-3 as well. Each
+    again in bf16 (MIXED_PRECISION), bound 1e-2: the network and the
+    correlation maps in bf16 on both sides, with sums in another order."""
     from dpvo_torch.config import cfg as base_cfg
 
     gb = dict(CENTROID_SEL_STRAT='GRADIENT_BIAS')
-    for label, (H, W), impl, extra, kernels, mixed, tol in (
-            ('DeviceVO', (64, 96), 'onepass', {}, ('corr_onepass',), False,
-             1e-3),
-            ('DeviceVO', (64, 96), 'onepass', {}, ('corr_onepass',), True,
-             1e-2),
-            ('HybridVO', (256, 320), 'onepass', gb, ('corr_onepass',), False,
-             1e-3),
+    runs = (('DeviceVO', (64, 96), 'onepass', {}, ('corr_onepass',)),
+            ('HybridVO', (256, 320), 'onepass', gb, ('corr_onepass',)),
             ('HybridVO', (256, 320), 'fused_k', gb,
-             ('corr_planes', 'corr_select'), False, 1e-3)):
+             ('corr_planes', 'corr_select')))
+    for (label, (H, W), impl, extra, kernels), (mixed, tol) in \
+            itertools.product(runs, ((False, 1e-3), (True, 1e-2))):
         cfg = base_cfg.clone()
         cfg.merge_from_file(CONFIG)
         cfg.PATCHES_PER_FRAME = 8
@@ -582,6 +585,13 @@ def main():
         thr, smem, blocks = corr_onepass.occupancy(maps, torch.bfloat16)
         print(f'  K1 with {maps} maps: {thr} threads and {smem} B of shared '
               f'memory per block, {blocks} blocks per SM')
+    for key in ('dots', 'dots2'):
+        sh = corr_probes.dots_shape(key, 49152)
+        print(f'  K6 {key} at E = 49,152: grid {sh["grid"]}, '
+              f'{sh["threads"]} threads, {sh["smem"]} B of dynamic shared '
+              f'memory, {sh["regs"]} registers, {sh["resident"]} blocks per '
+              f'SM; ring of {sh["stages"]} stages x {sh["rows"]} rows, '
+              f'{sh["warps"]} consumer warps')
 
     print('[3/8] kernels vs plain', flush=True)
     err, k_ms, p_ms, b1 = kernel_vs_plain(dev, E=49152, F=36, H1=120,

@@ -71,6 +71,7 @@ def build():
                                             [I] * 8 + [P]),
             'probe_planes_w12x16_launch': [P] * 10 + [I] * 8 + [P],
             'probe_dots_launch': [P] * 3 + [I] * 4 + [P],
+            'probe_dots_shape': [I] * 4 + [P],
             'probe_slab_launch': [P] * 5 + [I] * 4 + [P],
         }
         for name, argtypes in sigs.items():
@@ -350,6 +351,22 @@ def planes_fixedw(g9, fmap1, fmap2, jj):
     if g9.device.type == 'cpu':
         return planes_fixedw_plain(g9, fmap1, fmap2, jj)
     return _w12x16('planes_fixedw', True, g9, fmap1, fmap2, jj, None)
+
+
+def dots_shape(key, E, device=0):
+    """The launch shape of K6 `key` ('dots' or 'dots2') for E edges, as
+    the CUDA runtime reports it: grid, threads, smem (dynamic bytes), regs,
+    resident (blocks per SM), and its ring (csrc/corr_probes.cu:DotsRing):
+    stages, rows per stage, consumer warps."""
+    if _lib is None:
+        build()
+    variant, n = {'dots': (0, DOTS_W), 'dots2': (1, DOTS2_W)}[key]
+    info = (ctypes.c_int * 8)()
+    err = _lib.probe_dots_shape(variant, n, E, device, info)
+    if err != 0:
+        raise RuntimeError(f'probe_dots_shape: CUDA error {err}')
+    return dict(zip(('grid', 'threads', 'smem', 'regs', 'resident',
+                     'stages', 'rows', 'warps'), info))
 
 
 def _dots(key, variant, n, out_dtype, g9, win):

@@ -78,8 +78,9 @@ def bound_ms(nbytes_, flops):
 
 
 def time_ms(fn, reps=20):
-    """Median device time of fn() over `reps` runs (CUDA events), after
-    one warm-up run."""
+    """Median time of fn() over `reps` runs, each alone between two CUDA
+    events after a synchronize (so it includes the host's work before the
+    launch), after one warm-up run."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -92,6 +93,37 @@ def time_ms(fn, reps=20):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def _batch_ms(fn, reps):
+    """Device ms per run of `reps` runs of fn() back to back between two
+    CUDA events: each run's host work (checks, allocation, launch)
+    overlaps the run before it, so the time is the device's."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def time_paired(fn, other, rounds=5, reps=20):
+    """fn() and other() timed in turns, after one warm-up run of each:
+    `rounds` rounds of (fn x reps, other x reps), each batch back to back
+    (_batch_ms), so that clock and power drift hit both alike. Returns
+    (median over the rounds of fn's ms per run, the same of other's, the
+    rounds' ratios)."""
+    fn()
+    other()
+    torch.cuda.synchronize()
+    ta, tb = [], []
+    for _ in range(rounds):
+        ta.append(_batch_ms(fn, reps))
+        tb.append(_batch_ms(other, reps))
+    ratios = [a / b for a, b in zip(ta, tb)]
+    return float(np.median(ta)), float(np.median(tb)), ratios
 
 
 def compare(got, ref):
@@ -123,9 +155,12 @@ def run(name, kernel, replaces, fn, plain, nbytes_, flops, dev,
         library=None, library_form=None):
     """One variant: fn() (the wrapper) against plain() on the same inputs
     (raises if any entry is off its bound), then, on the card, the median
-    times of both and of `library` (one PyTorch call computing the same
-    function, used nowhere in the port), and the roofline bound of this
-    run's bytes and operations. Prints one line; returns its dict."""
+    times (time_ms) of both and of `library` (one PyTorch call computing
+    the same function, used nowhere in the port), and the roofline bound of
+    this run's bytes and operations. Where `library` is given, fn and
+    library are also timed in turns (time_paired: device time of
+    back-to-back runs): `ms_paired`, `library_ms_paired`, their `ratio` and
+    the rounds' `ratios`. Prints one line; returns its dict."""
     got, ref = fn(), plain()
     if dev.type == 'cuda':
         torch.cuda.synchronize()
@@ -137,14 +172,24 @@ def run(name, kernel, replaces, fn, plain, nbytes_, flops, dev,
     row = dict(name=name, kernel=kernel, replaces=replaces, max_abs_err=err,
                max_abs_plain=scale, bytes=nbytes_, flops=flops, bound_ms=b_ms,
                bound_by=b_by, ms=None, plain_ms=None, library_ms=None,
-               library=library_form)
+               library=library_form, ms_paired=None, library_ms_paired=None,
+               ratio=None, ratios=None)
     if dev.type == 'cuda':
         row['ms'] = time_ms(fn)
         row['plain_ms'] = time_ms(plain)
         if library is not None:
             row['library_ms'] = time_ms(library)
-    lib = (f', library {row["library_ms"]!r} ms ({library_form})'
-           if library is not None else '')
+            row['ms_paired'], row['library_ms_paired'], row['ratios'] = \
+                time_paired(fn, library)
+            row['ratio'] = row['ms_paired'] / row['library_ms_paired']
+    lib = ''
+    if library is not None:
+        lib = f', library {row["library_ms"]!r} ms ({library_form})'
+        if row['ratio'] is not None:
+            lib += (f'; in turns {row["ms_paired"]!r} ms against '
+                    f'{row["library_ms_paired"]!r}, kernel / library '
+                    f'{row["ratio"]!r} (rounds {min(row["ratios"])!r} .. '
+                    f'{max(row["ratios"])!r})')
     print(f'  {name}: {row["ms"]!r} ms, plain {row["plain_ms"]!r} ms, bound '
           f'{b_ms!r} ms ({b_by}: {nbytes_ / 1e6:.1f} MB, {flops / 1e9:.2f} '
           f'GFLOP){lib}; max|kernel - plain| {err!r} at max|plain| '

@@ -12,7 +12,9 @@ Counterpart of scripts/micro_corr_floor.py. At scale 1 its sizes: E =
   slab   a 16x16 window per edge sliced from one resident 120x160 map,
          bf16 out: window y in [0, 104), x a multiple of 8 in [0, 144).
 Each variant is held against its plain version; times are CUDA-event
-medians of 20 (the card only).
+medians of 20 launches, each timed alone (the card only). dots and dots2
+are also timed in turns with their torch.bmm, 5 rounds of 20 back-to-back
+launches of each, and the kernel / library ratio is printed.
 """
 from __future__ import annotations
 

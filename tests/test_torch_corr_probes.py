@@ -296,6 +296,93 @@ def test_dots_match_probe_k6():
     _assert_bf16_close(got, ns['pallas_dots2'](gj, wj[:, :256]))
 
 
+def dots_schedule(E, grid, chunks, stages):
+    """probe_dots' order of work (csrc/corr_probes.cu): for each block b of
+    the persistent grid, the (edge, chunk, stage, parity) its producer
+    fills and its consumers drain, in that order. Block b takes edges b,
+    b + grid, ...; its k-th chunk (rows [chunk * rows, + rows) of an edge)
+    goes to stage k % stages and fills it for the (k // stages)-th time:
+    the consumers wait for the full barrier's phase of parity
+    (k // stages) & 1, the producer for the empty barrier's phase of the
+    other parity (the stage's previous drain). A block's i-th edge takes
+    g buffer i % 2 with parity (i // 2) & 1 in the same way."""
+    out = []
+    for b in range(min(grid, E)):
+        work, k = [], 0
+        for e in range(b, E, grid):
+            for c in range(chunks):
+                work.append((e, c, k % stages, (k // stages) & 1))
+                k += 1
+        out.append(work)
+    return out
+
+
+def _run_ring(work, stages, rng):
+    """One block's ring, driven only by the parity waits of dots_schedule
+    (a wait for parity p passes once the barrier's phase of parity p has
+    completed, i.e. while its count of completed phases is odd for p = 0
+    and even for p = 1), producer and consumer steps in a random
+    interleaving. Returns the (edge, chunk) the consumer read, in order;
+    fails on an overwrite of an unread stage or a read of a stale one."""
+    full, empty = [0] * stages, [0] * stages
+    slot = [None] * stages
+
+    def passes(completed, parity):
+        return completed % 2 != parity
+
+    p = q = 0
+    read = []
+    while q < len(work):
+        steps = []
+        if p < len(work) and passes(empty[work[p][2]], work[p][3] ^ 1):
+            steps.append('fill')
+        if q < p and passes(full[work[q][2]], work[q][3]):
+            steps.append('drain')
+        assert steps, f'deadlock at fill {p}, drain {q}'
+        if rng.choice(steps) == 'fill':
+            e, c, s, _ = work[p]
+            assert slot[s] is None, f'stage {s} overwritten before read'
+            slot[s] = (e, c)
+            full[s] += 1
+            p += 1
+        else:
+            e, c, s, _ = work[q]
+            assert slot[s] == (e, c), f'stage {s} holds {slot[s]}'
+            read.append(slot[s])
+            slot[s] = None
+            empty[s] += 1
+            q += 1
+    return read
+
+
+# (E, grid, chunks, stages): the kernel's own rings (dots: 384 / 128 rows
+# in 2 stages, 132 blocks; dots2: 256 / 64 rows in 4 stages, 396 blocks)
+# around their grids, then other shapes
+@pytest.mark.parametrize('E,grid,chunks,stages', [
+    (1, 132, 3, 2), (131, 132, 3, 2), (133, 132, 3, 2), (1029, 132, 3, 2),
+    (395, 396, 4, 4), (397, 396, 4, 4), (4099, 396, 4, 4),
+    (1, 264, 6, 4), (131, 132, 6, 4), (133, 132, 4, 4), (1029, 264, 6, 3),
+    (700, 264, 4, 8), (40, 7, 12, 1), (33, 4, 3, 2)])
+def test_dots_schedule_reads_each_row_once(E, grid, chunks, stages):
+    """K6's persistent schedule (dots_schedule, as csrc/corr_probes.cu runs
+    it): every chunk of every edge is filled and read exactly once, by one
+    block, in order; no stage is overwritten before it is read, whatever
+    the interleaving of producer and consumers. The g double buffer is the
+    same schedule with one chunk per edge and two stages."""
+    rng = np.random.RandomState(E)
+    sched = dots_schedule(E, grid, chunks, stages)
+    assert len(sched) == min(E, grid)
+    seen = [(e, c) for work in sched for e, c, _, _ in work]
+    assert sorted(seen) == [(e, c) for e in range(E) for c in range(chunks)]
+    for b, work in enumerate(sched):
+        assert [e for e, *_ in work[::chunks]] == list(range(b, E, grid))
+        for _ in range(3):
+            assert _run_ring(work, stages, rng) == [(e, c) for e, c, *_ in
+                                                    work]
+    for work in dots_schedule(E, grid, 1, 2):
+        _run_ring(work, 2, rng)
+
+
 def test_slab_matches_probe_k6_with_scalar_index():
     g9, _, fmap, by, bx = _floor_case(seed=4)
     ns = _probe('micro_corr_floor.py', ['fused_kernel', 'pallas_fused'],

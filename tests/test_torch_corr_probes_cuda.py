@@ -7,7 +7,9 @@ Bounds: bf16 outputs one bf16 rounding apart, |kernel - plain| <= 2^-7
 |plain| + 1e-5 max|plain| (both sum the same f32 products of bf16 values in
 another order, then round); f32 outputs (dots, first49) <= 1e-5
 max|plain| (the sum order only). Window bases reach outside the maps, so
-the zero fill is checked too."""
+the zero fill is checked too. K6's persistent dots kernel is also run at
+edge counts around its grid, on windows of other lengths and on a side
+stream."""
 import numpy as np
 import pytest
 import torch
@@ -118,19 +120,100 @@ def test_planes_w12x16(cuda, fixed):
         _close(got, cp.planes_w12x16_plain(*args))
 
 
-def test_dots(cuda):
-    rng = np.random.RandomState(6)
-    E = 1024
+def _dots_inputs(dev, E, W=384, seed=6):
+    rng = np.random.RandomState(seed)
     g9 = torch.from_numpy(rng.randn(E, P2, C).astype(np.float32)).to(
-        cuda).bfloat16()
-    win = torch.from_numpy(rng.randn(E, 384, C).astype(np.float32)).to(
-        cuda).bfloat16()
-    got = _counted('dots', lambda: cp.dots(g9, win))
-    assert got.dtype == torch.float32
-    _close([got], [cp.dots_plain(g9, win)])
+        dev).bfloat16()
+    win = torch.from_numpy(rng.randn(E, W, C).astype(np.float32)).to(
+        dev).bfloat16()
+    return g9, win
+
+
+def _check_dots(g9, win):
+    """dots (if win has 384 rows) and dots2 against their plain versions,
+    each launched once."""
+    E = g9.shape[0]
+    if win.shape[1] == 384:
+        got = _counted('dots', lambda: cp.dots(g9, win))
+        assert got.shape == (E, P2, 384) and got.dtype == torch.float32
+        _close([got], [cp.dots_plain(g9, win)])
     got = _counted('dots2', lambda: cp.dots2(g9, win))
     assert got.shape == (E, P2, 256) and got.dtype == torch.bfloat16
     _close([got], [cp.dots2_plain(g9, win)])
+
+
+def test_dots(cuda):
+    _check_dots(*_dots_inputs(cuda, 1024))
+
+
+@pytest.mark.parametrize('E', [1, 131, 133, 1029, 4099])
+def test_dots_edge_counts(cuda, E):
+    """Fewer edges than the persistent grid, not a multiple of it, and a
+    few edges past it."""
+    _check_dots(*_dots_inputs(cuda, E, seed=E))
+
+
+def test_dots_around_the_grid(cuda):
+    """E one below, at, and one above the grid, and one past twice it:
+    the last blocks take one edge more or less than the others."""
+    for key in ('dots', 'dots2'):
+        grid = cp.dots_shape(key, 1 << 20)['grid']
+        for E in (grid - 1, grid, grid + 1, 2 * grid + 1):
+            g9, win = _dots_inputs(cuda, E, seed=E)
+            fn = cp.dots if key == 'dots' else cp.dots2
+            plain = cp.dots_plain if key == 'dots' else cp.dots2_plain
+            _close([_counted(key, lambda: fn(g9, win))], [plain(g9, win)])
+
+
+@pytest.mark.parametrize('W', [256, 384, 400])
+def test_dots2_window_rows(cuda, W):
+    """dots2 reads the first 256 rows of windows of W rows."""
+    _check_dots(*_dots_inputs(cuda, 777, W=W, seed=W))
+
+
+def test_dots_on_a_side_stream(cuda):
+    g9, win = _dots_inputs(cuda, 999, seed=9)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        a = cp.dots(g9, win)
+        b = cp.dots2(g9, win)
+    torch.cuda.current_stream().wait_stream(s)
+    _close([a, b], [cp.dots_plain(g9, win), cp.dots2_plain(g9, win)])
+
+
+def test_dots_write_every_entry_and_repeat(cuda):
+    """Outputs laid over NaN-filled memory come out finite (every entry
+    written), and a second call on the same inputs and the reused buffer
+    gives the same bits."""
+    g9, win = _dots_inputs(cuda, 2048, seed=10)
+    for key, fn in (('dots', cp.dots), ('dots2', cp.dots2)):
+        n = 384 if key == 'dots' else 256
+        dt = torch.float32 if key == 'dots' else torch.bfloat16
+        outs = []
+        for _ in range(2):
+            torch.full((2048, P2, n), float('nan'), dtype=dt, device=cuda)
+            outs.append(fn(g9, win))
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(outs[-1]).all())
+            outs[-1] = outs[-1].clone()
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize('key', ['dots', 'dots2'])
+def test_dots_launch_shape(cuda, key):
+    """The persistent grid is min(E, blocks per SM x SMs), and the shape
+    is the ring's: one producer warp beside the consumers, the stages and
+    the g double buffer with their barriers in dynamic shared memory."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    sh = cp.dots_shape(key, 1)
+    assert sh['threads'] == 32 * (sh['warps'] + 1)
+    assert sh['smem'] == sh['stages'] * sh['rows'] * 256 + 2 * P2 * 256 \
+        + 8 * (2 * sh['stages'] + 4)
+    assert (256 if key == 'dots2' else 384) % sh['rows'] == 0
+    full = sh['resident'] * sms
+    for E in (1, 7, full - 1, full, full + 1, 49152, 49152 + 13):
+        assert cp.dots_shape(key, E)['grid'] == min(E, full), E
 
 
 def test_slab(cuda):
@@ -156,6 +239,9 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         cp.dots(g9, torch.zeros(64, 256, C, device=cuda,
                                 dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        cp.dots2(g9, torch.zeros(64, 200, C, device=cuda,
+                                 dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         cp.slab(g9, f1, by1, bx1)
     assert cp.launches == before

@@ -10,9 +10,9 @@ Phases (any failure raises, so the exit code is non-zero):
      dpvo_torch/csrc/corr_probes.cu (the probes K4-K8) with nvcc, one
      process per source, started together; prints ptxas's register and
      spill lines of each kernel, K1's threads, shared memory and blocks
-     per SM for bf16 and f32 maps, and K6 dots' persistent launch shape
-     (grid, threads, dynamic shared memory, registers, blocks per SM and
-     its ring);
+     per SM for bf16 and f32 maps, and the persistent launch shapes (grid,
+     threads, dynamic shared memory, registers, blocks per SM and ring) of
+     K2 for bf16 maps and of K6 dots;
   3. kernels vs plain, at the main paths' shapes (E = 49,152 edges, 36
      frames of 120x160 and 30x40 bf16 maps): K1 (plus the fast.yaml row
      layout, M = 48; the pixels per branch and level of its union-box rule,
@@ -20,14 +20,18 @@ Phases (any failure raises, so the exit code is non-zero):
      pixels whose spread overflows the window, which it must zero), and
      K2 + K3 against the exact correlation on edges whose spread fits the
      window, with the times of kernel and plain (CUDA events, median of 20)
-     and each kernel's roofline bound;
+     and each kernel's roofline bound; the bytes K1 stages and K2 copies
+     per call, and their rates at the kernels' times;
   4. DeviceVO main path: dpvo_torch.runtime.DPVO with config/default.yaml at
      640x480 and the full-width VONet (artifacts/micro_vonet.npz), 40
      synthetic frames + terminate(); K1 must cover every update iteration;
      wall, device busy, idle share and top kernels from a profiler trace;
   5. hybrid main path: the same with CENTROID_SEL_STRAT=GRADIENT_BIAS
      (HybridVO) and DPVO_CORR_IMPL=fused_k, 40 frames + terminate(); K2 and
-     K3 must cover every update iteration; the same measurements;
+     K3 must cover every update iteration; the same measurements; then
+     HybridVO again with onepass, its default (K1 must cover every update
+     iteration), measured alike: wall, busy and idle, and K1 against K2 +
+     K3 in device ms per frame;
   6. DeviceVO with DPVO_CORR_IMPL=fused_k, 12 frames + terminate() at
      640x480: K2 and K3 launch there too;
   7. CUDA vs CPU: DeviceVO at 64x96 (K1 vs plain) and HybridVO at
@@ -41,7 +45,8 @@ Phases (any failure raises, so the exit code is non-zero):
      set to 0 just before each and read just after; each probe kernel
      within its bound of its plain version, launched, timed beside its
      plain version, its bound and (K6 dots) one torch.bmm, timed in turns
-     with the kernel (kernel / library ratio printed).
+     with the kernel (kernel / library ratio printed); K2 against K4 on
+     micro_fused_v2's inputs (ratio printed).
 The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
@@ -122,8 +127,8 @@ def kernel_vs_plain(dev, E, F, H1, W1, Ng, nv, seed, kk=None, timed=False):
     rounding of it. Both of the kernel's branches (taps from the union box,
     taps from global memory for windows that overflow it; box_fits) must
     run on the live edges and be within the bound on their own. Returns
-    (max_abs_err, kernel_ms, plain_ms, (bound_ms, side)); the last three
-    None unless timed."""
+    (max_abs_err, kernel_ms, plain_ms, (bound_ms, side), staged bytes); the
+    times and bound None unless timed."""
     import torch
     from dpvo_torch.ops import corr_onepass
     from dpvo_torch.ops.corr import corr_two_level as corr_plain
@@ -168,7 +173,7 @@ def kernel_vs_plain(dev, E, F, H1, W1, Ng, nv, seed, kk=None, timed=False):
     print(f'  E={E} F={F} L1={H1}x{W1} nv={nv}: max|kernel-plain| = {err!r} '
           f'(max|plain| = {scale!r}, bound 1e-4 * max|plain|)', flush=True)
     if not timed:
-        return err, None, None, None
+        return err, None, None, None, staged
     from dpvo_torch.scripts._common import time_ms
     args = (*maps, co, kk_t, jj_t)
     k_ms = time_ms(lambda: corr_onepass.corr_two_level(
@@ -178,7 +183,7 @@ def kernel_vs_plain(dev, E, F, H1, W1, Ng, nv, seed, kk=None, timed=False):
     print(f'  time (bf16 out, median of 20): kernel {k_ms!r} ms, '
           f'plain {p_ms!r} ms; bound {bound[0]!r} ms ({bound[1]})',
           flush=True)
-    return err, k_ms, p_ms, bound
+    return err, k_ms, p_ms, bound, staged
 
 
 def k1_bound(gmap, f1, f2, co, kk, jj, nv):
@@ -212,8 +217,9 @@ def fused_vs_plain(dev, E, F, H1, W1, Ng, seed):
       * K2 + K3 vs the exact correlation (ops/corr.py, f32) on edges whose
         3x3 spread fits the windows: one bf16 rounding of the plane entries,
         <= 2^-8 max|plane| + 1e-5 max|exact|.
-    Returns ((K2 err, ms, plain ms, bound), (K3 err, ms, plain ms, bound)),
-    each bound (ms, side) for this run's bytes and operations."""
+    Returns ((K2 err, ms, plain ms, bound), (K3 err, ms, plain ms, bound),
+    bytes K2's bf16 kernel copies from L2), each bound (ms, side) for this
+    run's bytes and operations."""
     import torch
     from dpvo_torch.ops import corr_fused as cf
     from dpvo_torch.ops.corr import corr_two_level as corr_exact
@@ -314,7 +320,13 @@ def fused_vs_plain(dev, E, F, H1, W1, Ng, seed):
     print(f'  time (median of 20): K2 {k2_ms!r} ms, plain {p2_ms!r} ms, '
           f'bound {b2[0]!r} ms ({b2[1]}); K3 (both levels) {k3_ms!r} ms, '
           f'plain {p3_ms!r} ms, bound {b3[0]!r} ms ({b3[1]})', flush=True)
-    return (err2, k2_ms, p2_ms, b2), (err3, k3_ms, p3_ms, b3)
+    # what K2's ring copies: each edge's in-map window rows and its g rows
+    rows = cf.window_rows(kk_t, jj_t, *pargs[5:], Ng, F, H1, W1, H2, W2)
+    streamed = (int(rows.sum()) + E * 9) * 128 * 2
+    print(f'  K2 window rows in the map: {rows.float().mean().item()!r} of '
+          f'{cf.WY * cf.WX + cf.WY2 * cf.WX2} per edge; with the g rows '
+          f'{streamed / E / 1e3!r} KB per edge copied from L2', flush=True)
+    return (err2, k2_ms, p2_ms, b2), (err3, k3_ms, p3_ms, b3), streamed
 
 
 def device_time(trace_path):
@@ -377,12 +389,19 @@ def make_slam(cfg, H, W, dev, corr_impl):
     return slam
 
 
+# the correlation kernels of the bf16 main paths, by their names in a
+# profiler trace
+CORR_KERNELS = (('K1', 'corr_box_kernel'), ('K2', 'corr_planes_ring'),
+                ('K3', 'corr_select_kernel'))
+
+
 def main_path(dev, label, corr_impl, n_frames=40, measure=True, **overrides):
     """DPVO at 640x480 with default.yaml (+ overrides) and the full-width
     VONet: n_frames + terminate(), launch counts set to 0 just before and
     read just after. With measure, frames 10..n-11 give the wall time and
     frames n-10..n-1 a profiler trace. Returns (launches, update
-    iterations)."""
+    iterations, {wall, busy, idle: ms per frame and share; K1, K2, K3: the
+    correlation kernels' device ms per frame}, empty without measure)."""
     import torch
     from dpvo_torch.config import cfg as base_cfg
 
@@ -435,7 +454,7 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, **overrides):
     print(f'  {n_frames} frames + terminate(): keyframes n = {slam.n}'
           f'{edges}, launches {launches} (update iterations = {expected})')
     if not measure:
-        return launches, expected
+        return launches, expected, {}
 
     # frames 10 .. trace start run without the profiler, whose host-side
     # tracing slows every launch: they give the wall time and frames/s
@@ -446,9 +465,13 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, **overrides):
           f'{trace_frames.start - 1}, host clock with sync): '
           f'{wall_ms!r} ms (quartiles {q25!r}, {q75!r}) -> '
           f'{1e3 / wall_ms!r} frames/s')
+    stats = dict(wall=wall_ms, busy=None, idle=None)
     if busy > 0:
         nf = len(trace_frames)
         busy_ms = busy / nf
+        stats.update(busy=busy_ms, idle=1.0 - busy_ms / wall_ms)
+        for key, name in CORR_KERNELS:
+            stats[key] = sum(v for k, v in by_name.items() if name in k) / nf
         print(f'  device busy per frame (profiler, frames '
               f'{trace_frames.start}..{n_frames - 1}): {busy_ms!r} ms; '
               f'idle share of the unprofiled wall {1.0 - busy_ms / wall_ms!r}; '
@@ -462,7 +485,7 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, **overrides):
     else:
         print('  device busy per frame: not measured (no device events in '
               'the profiler trace)', flush=True)
-    return launches, expected
+    return launches, expected, stats
 
 
 def small_cpu_vs_cuda(dev):
@@ -531,6 +554,11 @@ def probes():
         corr_probes.reset_launches()
         res = mod.main(device='cuda', scale=1.0, seed=0)
         counts = dict(corr_probes.launches)
+        if mod is micro_fused_v2:
+            k2 = res['reference']['corr_planes']['ms']
+            k4 = res['variants']['planes_pair']['ms']
+            print(f'  K2 on K4\'s inputs: {k2!r} ms, K4 {k4!r} ms, K2 / K4 '
+                  f'{k2 / k4!r}', flush=True)
         for row in res['variants'].values():
             k = row['kernel']
             check(counts[k] > 0, f'{row["name"]}: kernel never launched')
@@ -585,6 +613,17 @@ def main():
         thr, smem, blocks = corr_onepass.occupancy(maps, torch.bfloat16)
         print(f'  K1 with {maps} maps: {thr} threads and {smem} B of shared '
               f'memory per block, {blocks} blocks per SM')
+    sh = corr_fused.planes_shape(49152)
+    check(sh['smem'] == corr_fused.ring_smem() and
+          (sh['stages'], sh['rows'], sh['warps']) ==
+          (corr_fused.RING_STAGES, corr_fused.RING_ROWS,
+           corr_fused.RING_WARPS), f'K2 launch shape {sh}')
+    print(f'  K2 with bf16 maps at E = 49,152: grid {sh["grid"]}, '
+          f'{sh["threads"]} threads, {sh["smem"]} B of dynamic shared '
+          f'memory, {sh["regs"]} registers, {sh["resident"]} blocks per SM; '
+          f'ring of {sh["stages"]} stages x {sh["rows"]} window positions '
+          f'({sh["stages"] * sh["rows"] * 256} B), {sh["warps"]} consumer '
+          f'warps')
     for key in ('dots', 'dots2'):
         sh = corr_probes.dots_shape(key, 49152)
         print(f'  K6 {key} at E = 49,152: grid {sh["grid"]}, '
@@ -594,33 +633,51 @@ def main():
               f'{sh["warps"]} consumer warps')
 
     print('[3/8] kernels vs plain', flush=True)
-    err, k_ms, p_ms, b1 = kernel_vs_plain(dev, E=49152, F=36, H1=120,
-                                          W1=160, Ng=36 * 96, nv=40013,
-                                          seed=0, timed=True)
+    err, k_ms, p_ms, b1, staged = kernel_vs_plain(
+        dev, E=49152, F=36, H1=120, W1=160, Ng=36 * 96, nv=40013, seed=0,
+        timed=True)
     M, G = 48, 320                  # fast.yaml: M = 48, 320 pair slots
     kk = (np.repeat(np.arange(G) % 36, M) * M + np.tile(np.arange(M), G))
     err48, *_ = kernel_vs_plain(dev, E=M * G, F=36, H1=120, W1=160,
                                   Ng=36 * M, nv=300 * M, seed=1, kk=kk)
-    k2, k3 = fused_vs_plain(dev, E=49152, F=36, H1=120, W1=160, Ng=36 * 96,
-                            seed=2)
+    k2, k3, streamed = fused_vs_plain(dev, E=49152, F=36, H1=120, W1=160,
+                                      Ng=36 * 96, seed=2)
+    print(f'  bytes to the SMs per call: K1 stages {staged / 1e9!r} GB '
+          f'({staged / k_ms / 1e9!r} TB/s at its time), K2 copies '
+          f'{streamed / 1e9!r} GB ({streamed / k2[1] / 1e9!r} TB/s)',
+          flush=True)
 
     print('[4/8] DeviceVO main path', flush=True)
-    dv, dv_iters = main_path(dev, 'default.yaml', 'onepass')
+    dv, dv_iters, _ = main_path(dev, 'default.yaml', 'onepass')
     check(dv['corr_onepass'] >= dv_iters, f'K1 launched '
           f'{dv["corr_onepass"]} times, expected >= {dv_iters}')
 
     print('[5/8] hybrid main path', flush=True)
-    hy, hy_iters = main_path(dev, 'default.yaml + GRADIENT_BIAS', 'fused_k',
-                             CENTROID_SEL_STRAT='GRADIENT_BIAS')
+    hy, hy_iters, hy_stats = main_path(dev, 'default.yaml + GRADIENT_BIAS',
+                                       'fused_k',
+                                       CENTROID_SEL_STRAT='GRADIENT_BIAS')
     # one K2 launch per update iteration, one K3 launch per level
     check(hy['corr_planes'] >= hy_iters, f'K2 launched '
           f'{hy["corr_planes"]} times, expected >= {hy_iters}')
     check(hy['corr_select'] >= 2 * hy_iters, f'K3 launched '
           f'{hy["corr_select"]} times, expected >= {2 * hy_iters}')
+    # the hybrid's default correlation (K1) on the same frames
+    ho, ho_iters, ho_stats = main_path(dev, 'default.yaml + GRADIENT_BIAS',
+                                       'onepass',
+                                       CENTROID_SEL_STRAT='GRADIENT_BIAS')
+    check(ho['corr_onepass'] >= ho_iters and ho['corr_planes'] == 0,
+          f'HybridVO onepass launches {ho}, expected K1 >= {ho_iters}')
+    for impl, st in (('fused_k', hy_stats), ('onepass', ho_stats)):
+        corr = ('not measured' if st['busy'] is None else
+                f'K1 {st["K1"]!r}, K2 {st["K2"]!r}, K3 {st["K3"]!r}, '
+                f'K2 + K3 {st["K2"] + st["K3"]!r}')
+        print(f'  HybridVO {impl}: wall {st["wall"]!r} ms/frame, busy '
+              f'{st["busy"]!r}, idle {st["idle"]!r}; correlation ms/frame: '
+              f'{corr}', flush=True)
 
     print('[6/8] DeviceVO with fused_k', flush=True)
-    dk, dk_iters = main_path(dev, 'default.yaml', 'fused_k', n_frames=12,
-                             measure=False)
+    dk, dk_iters, _ = main_path(dev, 'default.yaml', 'fused_k', n_frames=12,
+                                measure=False)
     check(dk['corr_planes'] >= dk_iters and
           dk['corr_select'] >= 2 * dk_iters,
           f'K2 / K3 launched {dk}, expected >= {dk_iters} / '

@@ -82,14 +82,13 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include <algorithm>
-#include <mutex>
-
 #include "mma_bf16.cuh"
+#include "ring.cuh"
 
 namespace {
 
 using namespace corr_mma;   // GFrag, load_gfrag, tile_dot, stage_tile, ...
+using namespace corr_ring;  // mbarriers, bulk copies
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;   // one edge per 128 threads
@@ -322,69 +321,6 @@ __host__ __device__ constexpr int dots_smem() {
          8 * (2 * R::kStages + 4);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also expects `bytes` from the copy engine
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// until the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// `bytes` (a multiple of 16) from global `src` to shared `dst` on the copy
-// engine, completing on barrier `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// B of one tile from this lane's row of a stage (16-byte words): the words
-// of the four 32-channel chunks. Odd lane groups (sw = 1) read them in the
-// order 1, 0, 3, 2, so that groups grp and grp + 1, whose rows start on
-// the same bank, read different banks, and swap them back.
-__device__ __forceinline__ void stage_b(const uint4* row, int sw,
-                                        uint4 (&b)[kChunks]) {
-  const int t = threadIdx.x & 3;
-  uint4 r[kChunks];
-#pragma unroll
-  for (int k = 0; k < kChunks; ++k) r[k] = row[4 * (k ^ sw) + t];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) b[c] = sw ? r[c ^ 1] : r[c];
-}
-
 // a tile's products (tile_mma's d) to positions q0 .. q0 + 7 of the rows of
 // out[base ..] (9 x N), straight from registers
 template <int N, bool kBf16Out>
@@ -441,7 +377,7 @@ probe_dots(const bf16* __restrict__ g, const bf16* __restrict__ win,
       mbar_init(gfull0 + 8 * b, 1);
       mbar_init(gempty0 + 8 * b, nw);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -564,63 +500,21 @@ int dots_rows(int variant, int W) {
   return 0;
 }
 
-// A launch shape of probe_dots: grid, threads, dynamic shared memory,
-// registers and blocks per SM.
-struct DotsShape {
-  int grid, threads, smem, regs, blocks_per_sm;
+// probe_dots<N, kBf16Out> for ring_shape: the kernel, its threads, its
+// dynamic shared memory and the blocks per SM its ring asks for
+template <int N, bool kBf16Out>
+struct DotsKernel {
+  static const void* fn() {
+    return reinterpret_cast<const void*>(probe_dots<N, kBf16Out>);
+  }
+  static constexpr int kThreads = 32 * (DotsRing<N>::kWarps + 1);
+  static constexpr int kSmem = dots_smem<N>();
+  static constexpr int kBlocksPerSm = DotsRing<N>::kBlocksPerSm;
 };
-
-// The full shape of probe_dots<N, ...> on `device` (the current device),
-// from the runtime: the blocks per SM that fit, at most the ring's, times
-// the SMs make the grid. Opts in to the ring's dynamic shared memory.
-template <int N, bool kBf16Out>
-cudaError_t dots_query(int device, DotsShape* sh) {
-  const void* fn = reinterpret_cast<const void*>(probe_dots<N, kBf16Out>);
-  sh->threads = 32 * (DotsRing<N>::kWarps + 1);
-  sh->smem = dots_smem<N>();
-  // above 48 KB of dynamic shared memory only after opting in
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, sh->smem);
-  if (err != cudaSuccess) return err;
-  int fit = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, fn, sh->threads,
-                                                      sh->smem);
-  if (err != cudaSuccess) return err;
-  if (fit < 1) return cudaErrorInvalidConfiguration;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attrs;
-  err = cudaFuncGetAttributes(&attrs, fn);
-  if (err != cudaSuccess) return err;
-  sh->regs = attrs.numRegs;
-  sh->blocks_per_sm = std::min(fit, DotsRing<N>::kBlocksPerSm);
-  sh->grid = sh->blocks_per_sm * sms;
-  return cudaSuccess;
-}
-
-constexpr int kMaxDevices = 64;
-
-// dots_query's shape on `device` (the current device), queried once per
-// instantiation and device (std::call_once, so threads launching at once
-// share one query), its grid cut to E blocks when E is smaller.
-template <int N, bool kBf16Out>
-cudaError_t dots_shape(int E, int device, DotsShape* sh) {
-  static std::once_flag once[kMaxDevices];
-  static DotsShape shape[kMaxDevices];
-  static cudaError_t status[kMaxDevices];
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  std::call_once(once[device], [device] {
-    status[device] = dots_query<N, kBf16Out>(device, &shape[device]);
-  });
-  if (status[device] != cudaSuccess) return status[device];
-  *sh = shape[device];
-  sh->grid = std::max(1, std::min(E, sh->grid));
-  return cudaSuccess;
-}
 
 // Validates (variant, W), selects the device and fills the shape of the
 // instantiation they select; returns its N (0 on an error, in *err).
-int dots_setup(int variant, int W, int E, int device, DotsShape* sh,
+int dots_setup(int variant, int W, int E, int device, RingShape* sh,
                cudaError_t* err) {
   const int N = dots_rows(variant, W);
   if (N == 0) {
@@ -629,8 +523,8 @@ int dots_setup(int variant, int W, int E, int device, DotsShape* sh,
   }
   *err = cudaSetDevice(device);
   if (*err == cudaSuccess)
-    *err = N == 384 ? dots_shape<384, false>(E, device, sh)
-                    : dots_shape<256, true>(E, device, sh);
+    *err = N == 384 ? ring_shape<DotsKernel<384, false>>(E, device, sh)
+                    : ring_shape<DotsKernel<256, true>>(E, device, sh);
   if (*err == cudaSuccess) return N;
   cudaGetLastError();  // a refused attribute must not fail a later launch
   return 0;
@@ -745,7 +639,7 @@ extern "C" int probe_dots_launch(const void* g, const void* win, void* out,
                                  int E, int W, int variant, int device,
                                  void* stream) {
   if (E <= 0) return 0;
-  DotsShape sh;
+  RingShape sh;
   cudaError_t err;
   const int N = dots_setup(variant, W, E, device, &sh, &err);
   if (N == 0) return static_cast<int>(err);
@@ -767,7 +661,7 @@ extern "C" int probe_dots_launch(const void* g, const void* win, void* out,
 // and consumer warps.
 extern "C" int probe_dots_shape(int variant, int W, int E, int device,
                                 int* info) {
-  DotsShape sh;
+  RingShape sh;
   cudaError_t err;
   const int N = dots_setup(variant, W, E, device, &sh, &err);
   if (N == 0) return static_cast<int>(err);

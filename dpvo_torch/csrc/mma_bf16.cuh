@@ -1,5 +1,5 @@
 // Tensor-core building blocks shared by the correlation kernels
-// (corr_onepass.cu, corr_probes.cu): the dot of an edge's 9 g rows
+// (corr_onepass.cu, corr_fused.cu, corr_probes.cu): the dot of an edge's 9 g rows
 // (3 x 3 patch pixels, 128 bf16 channels) with 8 channel rows at a time,
 // as mma.sync m16n8k16 with bf16 inputs and f32 accumulation.
 //
@@ -87,6 +87,21 @@ __device__ __forceinline__ void tile_dot(const GFrag& a, const bf16* row,
     b[c] = row ? __ldg(reinterpret_cast<const uint4*>(row) + 4 * c + t)
                : make_uint4(0, 0, 0, 0);
   tile_mma(a, b, d);
+}
+
+// B of one tile from this lane's row of a ring stage whose rows land
+// unswizzled at a 256-byte stride (bulk copies; 16-byte words): the words
+// of the four 32-channel chunks. Odd lane groups (sw = 1) read them in the
+// order 1, 0, 3, 2, so that groups grp and grp + 1, whose rows start on
+// the same bank, read different banks, and swap them back.
+__device__ __forceinline__ void stage_b(const uint4* row, int sw,
+                                        uint4 (&b)[kChunks]) {
+  const int t = threadIdx.x & 3;
+  uint4 r[kChunks];
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) r[k] = row[4 * (k ^ sw) + t];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) b[c] = sw ? r[c ^ 1] : r[c];
 }
 
 // stage: f32 [9][ns], positions q0 .. q0 + 7 of this tile

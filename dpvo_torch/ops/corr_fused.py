@@ -3,11 +3,15 @@
 Port of dpvo_tpu/ops/corr_fused.py:corr_fused. The same op as ops/corr.py
 (both pyramid levels; level 2 at coords / 4), computed in two passes:
 
-  1. `planes` (K2, csrc/corr_fused.cu:corr_planes_kernel, replacing
-     dpvo_tpu/ops/corr_fused.py:_plane_kernel): per edge, the dot of its
-     9 source-patch pixels with every pixel of a fixed window of the target
-     frame -- 12 x 24 at level 1, 10 x 16 at level 2 -- as bf16 planes
-     (f32 accumulation; bf16 whatever the maps' dtype, as in dpvo_tpu).
+  1. `planes` (K2, replacing dpvo_tpu/ops/corr_fused.py:_plane_kernel):
+     per edge, the dot of its 9 source-patch pixels with every pixel of a
+     fixed window of the target frame -- 12 x 24 at level 1, 10 x 16 at
+     level 2 -- as bf16 planes (f32 accumulation; bf16 whatever the maps'
+     dtype, as in dpvo_tpu). Two kernels of csrc/corr_fused.cu serve it:
+     bf16 maps launch `corr_planes_ring` (a persistent grid; window rows
+     streamed into a shared-memory ring by bulk copies, dots on the tensor
+     cores; its launch shape is `planes_shape`), f32 maps
+     `corr_planes_kernel` (f32 FMAs).
   2. `select_taps` (K3, csrc/corr_fused.cu:corr_select_kernel, replacing
      dpvo_tpu/ops/corr_select.py:_sel_kernel): per pixel, the 8 x 8 tap
      block at its window offset, bilinear to 7 x 7 in f32, taps outside the
@@ -48,6 +52,9 @@ WY, WX = 12, 24        # level-1 window: 8 taps + 4 rows / 7 + 5 cols slack
 WY2, WX2 = 10, 16      # level-2 window: 8 taps + 2 rows / 3 + 5 cols slack
 D_MIN = 16             # below this map size: the exact correlation
 _CHUNK = 512           # edges per chunk of the plain planes (~117 MB f32)
+# the ring of K2's bf16 kernel (csrc/corr_fused.cu:PlanesRing): stages of
+# RING_ROWS window positions, RING_WARPS consumer warps
+RING_STAGES, RING_ROWS, RING_WARPS = 3, 64, 4
 
 # kernel launches (plain counts; callers reset them)
 plane_launches = 0
@@ -66,6 +73,9 @@ def build():
                                            [ctypes.c_int] * 9 +
                                            [ctypes.c_void_p])
         lib.corr_planes_launch.restype = ctypes.c_int
+        lib.corr_planes_shape.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        lib.corr_planes_shape.restype = ctypes.c_int
         lib.corr_select_launch.argtypes = ([ctypes.c_void_p] * 8 +
                                            [ctypes.c_int] * 5 +
                                            [ctypes.c_void_p])
@@ -147,6 +157,30 @@ def planes_plain(g, fmap1, fmap2, kk, jj, by1, bx1, by2, bx2):
     return tuple(out)
 
 
+def ring_smem():
+    """Dynamic shared memory of K2's bf16 kernel per block, in bytes: the
+    ring's stages of 256-byte channel rows, two slots of an edge's 9 g rows
+    and its four window bases, and 8-byte barriers (full and empty per
+    stage, two per slot)."""
+    return (RING_STAGES * RING_ROWS * C * 2 + 2 * (P2 * C * 2 + 16) +
+            8 * (2 * RING_STAGES + 4))
+
+
+def window_rows(kk, jj, by1, bx1, by2, bx2, Ng, F, H1, W1, H2, W2):
+    """(E,) int64: the window positions of each edge that lie inside the
+    map, at both levels -- the 256-byte channel rows K2's bf16 kernel copies
+    for it (0 for an edge whose kk or jj is out of range)."""
+    kk, jj = kk.long(), jj.long()
+    ok = (kk >= 0) & (kk < Ng) & (jj >= 0) & (jj < F)
+    n = torch.zeros_like(kk)
+    for by, bx, wy, wx, H, W in ((by1, bx1, WY, WX, H1, W1),
+                                 (by2, bx2, WY2, WX2, H2, W2)):
+        y = by.long()[:, None] + torch.arange(wy, device=kk.device)
+        x = bx.long()[:, None] + torch.arange(wx, device=kk.device)
+        n += ((y >= 0) & (y < H)).sum(1) * ((x >= 0) & (x < W)).sum(1)
+    return torch.where(ok, n, 0)
+
+
 def _check_int(name, t, E, dev):
     if t.device != dev or t.dtype != torch.int32 or t.shape != (E,) \
             or not t.is_contiguous():
@@ -154,9 +188,26 @@ def _check_int(name, t, E, dev):
                          f'got {tuple(t.shape)} {t.dtype} on {t.device}')
 
 
+def planes_shape(E, device=0):
+    """The launch shape of K2 for bf16 maps and E edges (csrc/corr_fused.cu:
+    corr_planes_ring), as the CUDA runtime reports it on `device`: grid,
+    threads, smem (dynamic bytes), regs, resident (blocks per SM), and its
+    ring (PlanesRing): stages, rows (window positions per stage), warps
+    (consumer warps)."""
+    if _lib is None:
+        build()
+    info = (ctypes.c_int * 8)()
+    err = _lib.corr_planes_shape(E, device, info)
+    if err != 0:
+        raise RuntimeError(f'corr_planes_shape: CUDA error {err}')
+    return dict(zip(('grid', 'threads', 'smem', 'regs', 'resident',
+                     'stages', 'rows', 'warps'), info))
+
+
 def planes(g, fmap1, fmap2, kk, jj, by1, bx1, by2, bx2):
     """K2: the correlation planes of both levels (see planes_plain), one
-    launch on the card. CPU tensors take planes_plain."""
+    launch on the card: corr_planes_ring for bf16 maps, corr_planes_kernel
+    for f32. CPU tensors take planes_plain."""
     global plane_launches
     dev = g.device
     if dev.type == 'cpu':

@@ -12,7 +12,8 @@ Phases (any failure raises, so the exit code is non-zero):
      spill lines of each kernel, K1's threads, shared memory and blocks
      per SM for bf16 and f32 maps, and the persistent launch shapes (grid,
      threads, dynamic shared memory, registers, blocks per SM and ring) of
-     K2 for bf16 maps and of K6 dots;
+     K2 for bf16 maps, of K5 and K8 (both) on the planes ring and of K6
+     dots;
   3. kernels vs plain, at the main paths' shapes (E = 49,152 edges, 36
      frames of 120x160 and 30x40 bf16 maps): K1 (plus the fast.yaml row
      layout, M = 48; the pixels per branch and level of its union-box rule,
@@ -20,7 +21,8 @@ Phases (any failure raises, so the exit code is non-zero):
      pixels whose spread overflows the window, which it must zero), and
      K2 + K3 against the exact correlation on edges whose spread fits the
      window, with the times of kernel and plain (CUDA events, median of 20)
-     and each kernel's roofline bound; the bytes K1 stages and K2 copies
+     and each kernel's roofline bound, and K3's and K2's device times
+     (back-to-back launches in turns); the bytes K1 stages and K2 copies
      per call, and their rates at the kernels' times;
   4. DeviceVO main path: dpvo_torch.runtime.DPVO with config/default.yaml at
      640x480 and the full-width VONet (artifacts/micro_vonet.npz), 40
@@ -46,7 +48,9 @@ Phases (any failure raises, so the exit code is non-zero):
      within its bound of its plain version, launched, timed beside its
      plain version, its bound and (K6 dots) one torch.bmm, timed in turns
      with the kernel (kernel / library ratio printed); K2 against K4 on
-     micro_fused_v2's inputs (ratio printed).
+     micro_fused_v2's inputs (ratio printed); device times in turns of K5
+     against K4 and of K8 w12x16 against K8 fixedw, with the rates at
+     which they copy window rows from L2.
 The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
@@ -320,6 +324,12 @@ def fused_vs_plain(dev, E, F, H1, W1, Ng, seed):
     print(f'  time (median of 20): K2 {k2_ms!r} ms, plain {p2_ms!r} ms, '
           f'bound {b2[0]!r} ms ({b2[1]}); K3 (both levels) {k3_ms!r} ms, '
           f'plain {p3_ms!r} ms, bound {b3[0]!r} ms ({b3[1]})', flush=True)
+    # device time: back-to-back launches, K3 (both levels) in turns with K2
+    k3_dev, k2_dev, _ = cm.time_paired(
+        lambda: [cf.select_taps(*a) for a in sargs], lambda: cf.planes(*pargs))
+    print(f'  device time in turns (back-to-back launches): K3 (both levels) '
+          f'{k3_dev!r} ms, {b3[0] / k3_dev!r} of its bound; K2 {k2_dev!r} ms',
+          flush=True)
     # what K2's ring copies: each edge's in-map window rows and its g rows
     rows = cf.window_rows(kk_t, jj_t, *pargs[5:], Ng, F, H1, W1, H2, W2)
     streamed = (int(rows.sum()) + E * 9) * 128 * 2
@@ -624,6 +634,16 @@ def main():
           f'ring of {sh["stages"]} stages x {sh["rows"]} window positions '
           f'({sh["stages"] * sh["rows"] * 256} B), {sh["warps"]} consumer '
           f'warps')
+    for key, (stages, rows, warps, _) in corr_probes.PLANES_RING.items():
+        sh = corr_probes.planes_ring_shape(key, 49152)
+        check(sh['smem'] == corr_probes.ring_smem(key) and
+              (sh['stages'], sh['rows'], sh['warps']) == (stages, rows, warps),
+              f'{key} launch shape {sh}')
+        print(f'  {key} (on the planes ring) at E = 49,152: grid '
+              f'{sh["grid"]}, {sh["threads"]} threads, {sh["smem"]} B of '
+              f'dynamic shared memory, {sh["regs"]} registers, '
+              f'{sh["resident"]} blocks per SM; ring of {sh["stages"]} stages '
+              f'x {sh["rows"]} window positions, {sh["warps"]} consumer warps')
     for key in ('dots', 'dots2'):
         sh = corr_probes.dots_shape(key, 49152)
         print(f'  K6 {key} at E = 49,152: grid {sh["grid"]}, '

@@ -30,41 +30,17 @@
 // channel rows of 256 B per edge, 114,688 B, 5.64 GB per call at E =
 // 49,152, each edge reading its own windows (a target frame's maps, 5.2 MB
 // at 640x480, stay in L2 while the edges, sorted by target, read them; the
-// bytes bound of the maps themselves is ~13x lower). The design keeps that
-// stream going and spends little else:
-//   * a persistent grid: as many blocks as fit, each walking the edges with
-//     a stride of the grid, so no block starts or ends between edges and
-//     one edge's stores drain while the next edge's rows stream in. Each
-//     block has one producer warp and kWarps consumer warps;
-//   * the producer warp keeps a ring of stages full, each kRows window
-//     positions (an edge is kN / kRows stages), with 1-D bulk copies
-//     (cp.async.bulk) that complete on the stage's "full" mbarrier: inside
-//     the map a window row is 24 (level 1) or 16 (level 2) contiguous
-//     channel rows of the channels-last map, so lane r copies the part of
-//     window row r's in-map run that falls in the stage, one copy, and the
-//     22 lanes of the edge's rows issue together. The edge's 9 g rows and
-//     its window bases ride in a double buffer with their own barriers;
-//   * positions outside the map are not copied. Their slots hold stale rows,
-//     whose products land in their own columns only (a column of an mma
-//     product depends on its own B column alone), and the epilogue writes
-//     those columns as zero. An edge whose kk or jj is out of range copies
-//     no window row and writes zeros;
-//   * the consumers hold the g rows as the mma A operand, run each 8-position
-//     tile of a stage with B read from shared memory (rows unswizzled at a
-//     256-byte stride; odd lane groups read the 32-channel chunks
-//     xor-swapped against the 2-way bank conflict, mma_bf16.cuh:stage_b),
-//     release the stage on its "empty" mbarrier and store the products as
-//     bf16 straight from registers. Each warp takes two adjacent tiles at a
-//     time, and the lanes of a quad trade columns by shuffles, so that each
-//     g row's 16 columns go out as one 32-byte store: a whole sector, where
-//     a tile alone writes half of one (that cost 9-10% on an H100). A tile
-//     lies within one window row (24 and 16 are multiples of 8), so the
-//     epilogue's mask is one row test and two column tests a lane.
-// The ring's shape (PlanesRing) is fixed at compile time. Once the copies
-// of each stage are in flight, what limits it on an H100 is the round trip
-// of a stage (copy, mma, release), not the bytes: the time per edge barely
-// moves between windows mostly outside the map and windows inside it, so
-// the rings with the most stages in flight per SM led (PERF.md section 6).
+// bytes bound of the maps themselves is ~13x lower). Its body is
+// planes_ring.cuh:ring_body, shared with the probes K5 and K8 (the design is
+// described there): a persistent grid; a producer warp, lane r copying
+// window row r's in-map run into a ring of stages with cp.async.bulk on
+// mbarriers; consumer warps on mma.sync that zero the columns outside the
+// map and store tile pairs as whole 32-byte sectors. The ring's shape
+// (PlanesRing) is fixed at compile time. Once the copies of each stage are
+// in flight, what limits it on an H100 is the round trip of a stage (copy,
+// mma, release), not the bytes: the time per edge barely moves between
+// windows mostly outside the map and windows inside it, so the rings with
+// the most stages in flight per SM led (PERF.md section 6).
 //
 // f32 maps (MIXED_PRECISION off, and the parity runs): corr_planes_kernel,
 // the first port of the TPU kernel, unchanged. 9 x 448 x 128 multiply-adds
@@ -113,19 +89,20 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "planes_ring.cuh"
 #include "ring.cuh"
 
 namespace {
 
-using namespace corr_mma;   // kC, kP2, kRowU4, GFrag, tile_mma, stage_b, ...
-using namespace corr_ring;  // mbarriers, bulk copies, RingShape
+using namespace corr_mma;   // bf16, kC, kP2
+using namespace corr_ring;  // RingShape, ring_shape
 
 constexpr int kWY1 = 12, kWX1 = 24;          // level-1 window
 constexpr int kWY2 = 10, kWX2 = 16;          // level-2 window
 constexpr int kN1 = kWY1 * kWX1;             // 288 positions
 constexpr int kN2 = kWY2 * kWX2;             // 160 positions
 constexpr int kN = kN1 + kN2;                // 448 positions per edge
-constexpr int kPlaneThreads = (kN1 + kN2) / 2;   // 224: two positions each
+constexpr int kPlaneThreads = kN / 2;        // 224: two positions each
 constexpr int kR = 3;                        // radius
 constexpr int kd = 2 * kR + 1;               // 7 outputs per axis
 constexpr int kSelOut = kd * kd * kP2;       // 441 outputs per edge
@@ -227,17 +204,7 @@ corr_planes_kernel(const T* __restrict__ g, const T* __restrict__ fmap1,
   }
 }
 
-// ---- K2 for bf16 maps: corr_planes_ring ----
-
-constexpr int kTiles1 = kN1 / 8;             // 36 tiles of 8 positions at L1
-constexpr int kRowBytes = kC * 2;            // one bf16 channel row
-constexpr int kGBytes = kP2 * kRowBytes;     // an edge's 9 g rows
-constexpr int kSlotBytes = kGBytes + 16;     // + its window bases (int4)
-// the window bases of an edge whose kk or jj is out of range: every row of
-// its windows lies above the map
-constexpr int kFar = -(1 << 28);
-static_assert(kWX1 % 8 == 0 && kWX2 % 8 == 0 && kN1 % 8 == 0,
-              "a tile of 8 positions lies in one window row");
+// ---- K2 for bf16 maps: corr_planes_ring (the body in planes_ring.cuh) ----
 
 // The ring: kStages stages of kRows window positions, kWarps consumer warps
 // (+ 1 producer), and the blocks asked for on each SM (at most what fits).
@@ -245,117 +212,38 @@ struct PlanesRing {
   static constexpr int kStages = 3, kRows = 64, kWarps = 4, kBlocksPerSm = 4;
 };
 
-// dynamic shared memory of the ring: the stages, the g double buffer (each
-// slot the 9 g rows and the edge's window bases), the barriers full[stages],
-// empty[stages], g_full[2], g_empty[2]
-constexpr int kPlanesSmem =
-    PlanesRing::kStages * PlanesRing::kRows * kRowBytes + 2 * kSlotBytes +
-    8 * (2 * PlanesRing::kStages + 4);
-
-// Window row r of an edge (r < kWY1: level-1 row r, else level-2 row
-// r - kWY1) inside the map: the edge's positions [qa, qb) in that row whose
-// pixels lie in the map, and the map pixel of the first (qa == qb: none).
-struct RowRun {
-  int qa, qb;
-  const bf16* src;
+// K2 as a spec of planes_ring::ring_body: K2's windows, g rows g[kk[e]]
+// (an edge whose kk or jj is out of range is all zero), per-edge bases.
+struct K2Planes {
+  using Ring = PlanesRing;
+  static constexpr int kWY1 = ::kWY1, kWX1 = ::kWX1;
+  static constexpr int kWY2 = ::kWY2, kWX2 = ::kWX2;
+  static constexpr bool kRoll = false;
+  struct Args {
+    const bf16 *g, *fmap1, *fmap2;
+    const int *kk, *jj, *by1, *bx1, *by2, *bx2;
+    bf16 *out1, *out2;
+    int E, Ng, F, H1, W1, H2, W2;
+  };
+  struct Edge {
+    int k, j;
+    int4 base;
+  };
+  static __device__ __forceinline__ Edge edge(const Args& a, int e) {
+    return Edge{a.kk[e], a.jj[e],
+                make_int4(a.by1[e], a.bx1[e], a.by2[e], a.bx2[e])};
+  }
+  static __device__ __forceinline__ bool ok(const Args& a, const Edge& x) {
+    return x.k >= 0 && x.k < a.Ng && x.j >= 0 && x.j < a.F;
+  }
+  static __device__ __forceinline__ int frame(const Edge& x) { return x.j; }
+  static __device__ __forceinline__ int4 base(const Edge& x) { return x.base; }
+  static __device__ __forceinline__ const bf16* g(const Args& a,
+                                                  const Edge& x, int) {
+    return a.g + static_cast<size_t>(x.k) * kP2 * kC;
+  }
 };
 
-__device__ __forceinline__ RowRun row_run(int r, int4 base, const bf16* f1,
-                                          const bf16* f2, int H1, int W1,
-                                          int H2, int W2) {
-  const bool l2 = r >= kWY1;
-  const int wy = l2 ? r - kWY1 : r, wx = l2 ? kWX2 : kWX1;
-  const int y = (l2 ? base.z : base.x) + wy, bx = l2 ? base.w : base.y;
-  const int W = l2 ? W2 : W1;
-  const int x0 = max(bx, 0), x1 = min(bx + wx, W);
-  if (r >= kWY1 + kWY2 || y < 0 || y >= (l2 ? H2 : H1) || x0 >= x1)
-    return RowRun{0, 0, nullptr};
-  // the position of map column x in this row is q0 + x
-  const int q0 = (l2 ? kN1 : 0) + wy * wx - bx;
-  return RowRun{q0 + x0, q0 + x1,
-                (l2 ? f2 : f1) + (static_cast<size_t>(y) * W + x0) * kC};
-}
-
-// The columns 2t, 2t + 1 of tile tq that lie inside the map.
-__device__ __forceinline__ void tile_cols_in(int tq, int4 base, int H1,
-                                             int W1, int H2, int W2,
-                                             bool& in0, bool& in1) {
-  const int t = threadIdx.x & 3;
-  const bool l2 = tq >= kTiles1;
-  const int tl = l2 ? tq - kTiles1 : tq;
-  const int tpr = (l2 ? kWX2 : kWX1) / 8;
-  const int y = (l2 ? base.z : base.x) + tl / tpr;
-  const int x = (l2 ? base.w : base.y) + (tl % tpr) * 8 + 2 * t;
-  const int W = l2 ? W2 : W1;
-  const bool yin = y >= 0 && y < (l2 ? H2 : H1);
-  in0 = yin && x >= 0 && x < W;
-  in1 = yin && x + 1 >= 0 && x + 1 < W;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Two adjacent tiles tq, tq + 1 (tq even, one level) of edge e as bf16:
-// the lanes of a quad gather four consecutive columns each by shuffles, so
-// that each g row's 16 columns go out as one 32-byte store.
-__device__ __forceinline__ void store_planes_pair(
-    const float (&d0)[4], const float (&d1)[4], int tq, int e, int4 base,
-    int H1, int W1, int H2, int W2, bf16* __restrict__ plane1,
-    bf16* __restrict__ plane2) {
-  const int lane = threadIdx.x & 31, grp = lane >> 2, t = lane & 3;
-  bool a0, a1, b0, b1;
-  tile_cols_in(tq, base, H1, W1, H2, W2, a0, a1);
-  tile_cols_in(tq + 1, base, H1, W1, H2, W2, b0, b1);
-  const uint32_t ar = pack_bf16(a0 ? d0[0] : 0.f, a1 ? d0[1] : 0.f);
-  const uint32_t a8 = pack_bf16(a0 ? d0[2] : 0.f, a1 ? d0[3] : 0.f);
-  const uint32_t br = pack_bf16(b0 ? d1[0] : 0.f, b1 ? d1[1] : 0.f);
-  const uint32_t b8 = pack_bf16(b0 ? d1[2] : 0.f, b1 ? d1[3] : 0.f);
-  // lane t takes columns 4t .. 4t + 3 of the pair: from lanes 2t, 2t + 1
-  // (mod 4) of its quad, of tile tq for t < 2, of tile tq + 1 else
-  const int s0 = (lane & ~3) | ((2 * t) & 3);
-  const uint32_t xa = __shfl_sync(0xffffffffu, ar, s0);
-  const uint32_t ya = __shfl_sync(0xffffffffu, ar, s0 + 1);
-  const uint32_t xb = __shfl_sync(0xffffffffu, br, s0);
-  const uint32_t yb = __shfl_sync(0xffffffffu, br, s0 + 1);
-  const uint32_t xa8 = __shfl_sync(0xffffffffu, a8, s0);
-  const uint32_t ya8 = __shfl_sync(0xffffffffu, a8, s0 + 1);
-  const uint32_t xb8 = __shfl_sync(0xffffffffu, b8, s0);
-  const uint32_t yb8 = __shfl_sync(0xffffffffu, b8, s0 + 1);
-  const bool l2 = tq >= kTiles1;
-  const int tl = l2 ? tq - kTiles1 : tq;
-  const int n = l2 ? kN2 : kN1;
-  bf16* o = (l2 ? plane2 : plane1) + static_cast<size_t>(e) * kP2 * n +
-            tl * 8 + 4 * t;
-  *reinterpret_cast<uint2*>(o + grp * n) =
-      t < 2 ? make_uint2(xa, ya) : make_uint2(xb, yb);
-  if (grp == 0)
-    *reinterpret_cast<uint2*>(o + 8 * n) =
-        t < 2 ? make_uint2(xa8, ya8) : make_uint2(xb8, yb8);
-}
-
-// An edge's scalars, as the producer reads them (one edge ahead).
-struct EdgeIn {
-  int k, j;
-  int4 base;
-};
-
-__device__ __forceinline__ EdgeIn edge_in(
-    const int* __restrict__ kk, const int* __restrict__ jj,
-    const int* __restrict__ by1, const int* __restrict__ bx1,
-    const int* __restrict__ by2, const int* __restrict__ bx2, int e) {
-  return EdgeIn{kk[e], jj[e], make_int4(by1[e], bx1[e], by2[e], bx2[e])};
-}
-
-// Block b takes edges b, b + grid, ...; its k-th stage fill (chunk k %
-// (kN / kRows) of its edge number k / (kN / kRows), positions [chunk *
-// kRows, + kRows)) goes to stage k % kStages and fills it for the
-// (k / kStages)-th time: the consumers wait for the full barrier's phase of
-// parity (k / kStages) & 1, the producer for the empty barrier's phase of
-// the other parity. The block's i-th edge takes g slot i % 2 with parity
-// (i / 2) & 1 in the same way (tests/test_torch_corr_planes_ring.py:
-// ring_schedule states the same and checks it).
 __global__ void __launch_bounds__(32 * (PlanesRing::kWarps + 1),
                                   PlanesRing::kBlocksPerSm)
 corr_planes_ring(const bf16* __restrict__ g, const bf16* __restrict__ fmap1,
@@ -365,119 +253,9 @@ corr_planes_ring(const bf16* __restrict__ g, const bf16* __restrict__ fmap1,
                  const int* __restrict__ bx2, bf16* __restrict__ plane1,
                  bf16* __restrict__ plane2, int E, int Ng, int F, int H1,
                  int W1, int H2, int W2) {
-  constexpr int S = PlanesRing::kStages, Q = PlanesRing::kRows;
-  constexpr int nw = PlanesRing::kWarps;
-  constexpr int chunks = kN / Q;
-  static_assert(Q % 16 == 0 && kN % Q == 0, "stages of whole tile pairs");
-  static_assert((kPlanesSmem + 1024) * PlanesRing::kBlocksPerSm <=
-                    228 * 1024,
-                "the ring's blocks fit an SM (1 KB reserved per block)");
-  extern __shared__ __align__(128) uint4 smem[];
-  unsigned char* slots =
-      reinterpret_cast<unsigned char*>(smem + S * Q * kRowU4);
-  const uint32_t ring0 = smem_u32(smem);
-  const uint32_t slot0 = ring0 + S * Q * kRowBytes;
-  const uint32_t full0 = slot0 + 2 * kSlotBytes, empty0 = full0 + 8 * S;
-  const uint32_t gfull0 = empty0 + 8 * S, gempty0 = gfull0 + 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, nw);
-    }
-    for (int b = 0; b < 2; ++b) {
-      mbar_init(gfull0 + 8 * b, 1);
-      mbar_init(gempty0 + 8 * b, nw);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (warp == nw) {  // the producer: lane r copies window row r
-    int stage = 0;
-    uint32_t phase = 0;
-    EdgeIn next = edge_in(kk, jj, by1, bx1, by2, bx2, blockIdx.x);
-    for (int e = blockIdx.x, i = 0; e < E; e += gridDim.x, ++i) {
-      const EdgeIn cur = next;
-      if (e + gridDim.x < E)
-        next = edge_in(kk, jj, by1, bx1, by2, bx2, e + gridDim.x);
-      // block-uniform: an edge naming no source row or target frame copies
-      // nothing and is all zero
-      const bool ok = cur.k >= 0 && cur.k < Ng && cur.j >= 0 && cur.j < F;
-      const int4 base = ok ? cur.base : make_int4(kFar, 0, kFar, 0);
-      if (lane == 0) {
-        const int sl = i & 1;
-        const uint32_t gfull = gfull0 + 8 * sl;
-        mbar_wait(gempty0 + 8 * sl, ((i >> 1) & 1) ^ 1);
-        *reinterpret_cast<int4*>(slots + sl * kSlotBytes + kGBytes) = base;
-        if (ok) {
-          mbar_expect_tx(gfull, kGBytes);
-          bulk_load(slot0 + sl * kSlotBytes,
-                    g + static_cast<size_t>(cur.k) * kP2 * kC, kGBytes,
-                    gfull);
-        } else {
-          mbar_arrive(gfull);
-        }
-      }
-      const size_t j = ok ? cur.j : 0;
-      const RowRun run = row_run(lane, base, fmap1 + j * H1 * W1 * kC,
-                                 fmap2 + j * H2 * W2 * kC, H1, W1, H2, W2);
-      for (int c = 0; c < chunks; ++c) {
-        const uint32_t full = full0 + 8 * stage;
-        // this lane's part of the stage's positions [c * Q, c * Q + Q)
-        const int lo = max(run.qa, c * Q), n = min(run.qb, c * Q + Q) - lo;
-        const uint32_t bytes =
-            __reduce_add_sync(0xffffffffu, n > 0 ? n * kRowBytes : 0);
-        mbar_wait(empty0 + 8 * stage, phase ^ 1);
-        if (lane == 0) mbar_expect_tx(full, bytes);
-        __syncwarp();
-        if (n > 0)
-          bulk_load(ring0 + (stage * Q + lo - c * Q) * kRowBytes,
-                    run.src + (lo - run.qa) * kC, n * kRowBytes, full);
-        if (++stage == S) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-    }
-    return;
-  }
-
-  // the consumers: warp w takes the tile pairs (2w, 2w + 1), (2w + 2nw,
-  // 2w + 2nw + 1), ... of every stage
-  const int grp = lane >> 2;
-  const int sw = grp & 1;
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int e = blockIdx.x, i = 0; e < E; e += gridDim.x, ++i) {
-    const int sl = i & 1;
-    mbar_wait(gfull0 + 8 * sl, (i >> 1) & 1);
-    const unsigned char* slot = slots + sl * kSlotBytes;
-    const GFrag a = load_gfrag(reinterpret_cast<const uint4*>(slot));
-    const int4 base = *reinterpret_cast<const int4*>(slot + kGBytes);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(gempty0 + 8 * sl);
-    for (int c = 0; c < chunks; ++c) {
-      mbar_wait(full0 + 8 * stage, phase);
-      const uint4* st = smem + stage * Q * kRowU4;
-      for (int tile = 2 * warp; tile < Q / 8; tile += 2 * nw) {
-        uint4 b[kChunks];
-        float d0[4], d1[4];
-        stage_b(st + (tile * 8 + grp) * kRowU4, sw, b);
-        tile_mma(a, b, d0);
-        stage_b(st + (tile * 8 + 8 + grp) * kRowU4, sw, b);
-        tile_mma(a, b, d1);
-        store_planes_pair(d0, d1, c * (Q / 8) + tile, e, base, H1, W1, H2,
-                          W2, plane1, plane2);
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty0 + 8 * stage);
-      if (++stage == S) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-  }
+  planes_ring::ring_body<K2Planes>(K2Planes::Args{
+      g, fmap1, fmap2, kk, jj, by1, bx1, by2, bx2, plane1, plane2, E, Ng, F,
+      H1, W1, H2, W2});
 }
 
 // corr_planes_ring for ring_shape
@@ -485,8 +263,8 @@ struct PlanesKernel {
   static const void* fn() {
     return reinterpret_cast<const void*>(corr_planes_ring);
   }
-  static constexpr int kThreads = 32 * (PlanesRing::kWarps + 1);
-  static constexpr int kSmem = kPlanesSmem;
+  static constexpr int kThreads = planes_ring::Geom<K2Planes>::kThreads;
+  static constexpr int kSmem = planes_ring::Geom<K2Planes>::kSmem;
   static constexpr int kBlocksPerSm = PlanesRing::kBlocksPerSm;
 };
 

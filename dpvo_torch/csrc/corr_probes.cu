@@ -8,12 +8,14 @@
 //
 // The TPU kernels they replace, all Pallas calls in the probe scripts:
 //   probe_planes_pair       scripts/micro_fused_v2.py:_plane_kernel_k2 (K4)
-//   probe_planes<kRoll>     scripts/micro_fused_v2.py:_plane_kernel_roll (K5)
+//   probe_planes_ring<kRollK5>
+//                           scripts/micro_fused_v2.py:_plane_kernel_roll (K5)
 //   probe_dots              scripts/micro_corr_floor.py:dot_kernel,
 //                           dot_kernel2 (K6)
 //   probe_slab              scripts/micro_corr_floor.py:fused_kernel (K6)
-//   probe_planes<kFirst49>  scripts/micro_onepass_dma.py:kernel (K7)
-//   probe_planes<kPlanes>   scripts/micro_kernel_variants.py:make_kernel
+//   probe_planes            scripts/micro_onepass_dma.py:kernel (K7)
+//   probe_planes_ring<kW12x16>, <kFixedW>
+//                           scripts/micro_kernel_variants.py:make_kernel
 //                           (K8; modes full / twodots / rank3 in one
 //                           instantiation, fixedw in a second)
 //
@@ -51,6 +53,19 @@
 // measurement), nor on the copy path (bulk copies, cp.async with L2 fetch
 // hints and 2-D tensor-map copies with L2 promotion measured alike).
 //
+// probe_planes_ring (K5, K8) is K2's kernel for bf16 maps with other
+// windows and epilogues: the body planes_ring.cuh:ring_body, one spec per
+// instantiation (ProbeSpec), its ring fixed at compile time (ProbeRing). A
+// persistent grid; a producer warp, lane r copying window row r's in-map
+// run into a ring of stages with cp.async.bulk on mbarriers (K8's 24 rows
+// of 16 positions, 4 KB each; K5's 22 rows of K2); consumer warps on
+// mma.sync storing tile pairs from registers as whole 32-byte sectors. K5's
+// roll is done by the copies: ring slot c of a level receives window
+// position (c + sh) mod N, so its products come out in output order and its
+// stores are K2's. Each edge still reads its own windows from L2 (K5 114,688
+// B, K8 98,304 B per edge), 4-5x the bytes bound; what is below that floor
+// is sharing a target frame's rows across its edges (ROADMAP queue 2).
+//
 // The other probes: the dots run on the tensor cores (mma.sync m16n8k16,
 // bf16 in, f32 accumulate; the building blocks are in mma_bf16.cuh,
 // shared with K1's bf16 kernel), so the arithmetic stays far below the
@@ -62,13 +77,14 @@
 //     channels) of its position's row, and the channels are permuted
 //     identically in A and B so that one 16-byte load feeds two k-steps;
 //   * the 9 x N f32 result of an edge is staged in shared memory and the
-//     epilogue (bf16 rounding, per-edge roll, first-49 columns) writes it
-//     out contiguously.
+//     epilogue (bf16 rounding, first-49 columns) writes it out
+//     contiguously.
 // Dropped, as TPU layout: the padded slabs and the phase-shifted copies of
 // the maps (positions outside the map read as zero, which is what the
 // padding held; a phase is bx + 4 * ph), the bit-packed SMEM scalar streams
 // (plain int32 arrays), the 32-edge sequential grid with its target-slab DMA
-// (one block per edge, all in parallel; a persistent grid for probe_dots),
+// (one block per edge, all in parallel; a persistent grid for probe_dots
+// and probe_planes_ring),
 // and K4's off-diagonal products (each edge is dotted with its own window
 // only).
 //
@@ -83,6 +99,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "planes_ring.cuh"
 #include "ring.cuh"
 
 namespace {
@@ -93,8 +110,6 @@ using namespace corr_ring;  // mbarriers, bulk copies
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;   // one edge per 128 threads
 constexpr int kFirst = 49;              // K7 keeps 49 columns per level
-
-enum Epilogue { kPlanes = 0, kRoll = 1, kFirst49 = 2 };
 
 // A window of wx columns at (by, bx) of one frame; position q is row q / wx,
 // column q % wx. Positions outside the map (or a missing frame) read zero.
@@ -151,7 +166,7 @@ __device__ __forceinline__ void store_bf16(bf16* dst, int n, int tid, int nthr,
 struct PlaneArgs {
   const bf16 *g, *fmap1, *fmap2;
   const int *jj, *by1, *bx1, *by2, *bx2;
-  const int *sh1, *sh2;                       // kRoll
+  const int *sh1, *sh2;                       // K5
   const int *s1, *s2;                         // K7's streams
   const float *fr1, *fr2, *S1, *S2;
   int nS1, nS2;
@@ -225,23 +240,16 @@ probe_planes_pair(const PlaneArgs p) {
   }
 }
 
-// K5, K7, K8: one edge per block, windows WY1 x WX1 / WY2 x WX2 (by, bx at
-// (0, 0) of the frame with kFixed). Epilogue:
-//   kPlanes   bf16 planes (E, 9, WY*WX) per level;
-//   kRoll     the same, each edge's level rolled by -sh over the flattened
-//             plane: out[e, p, c] = plane[e, p, (c + sh[e]) mod (WY*WX)];
-//   kFirst49  f32, the first 49 columns of each flattened plane row, as
-//             (E * 9, 49) per level (only those positions are computed).
-template <int WY1, int WX1, int WY2, int WX2, int Epi, bool kStreams,
-          bool kFixed>
+// K7: one edge per block, K2's windows (12 x 24 at level 1, 10 x 16 at
+// level 2); the first 49 columns of each flattened f32 plane row, as
+// (E * 9, 49) per level (only those positions are computed). kStreams also
+// reads the probe's per-step input streams (read_streams).
+template <bool kStreams>
 __global__ void __launch_bounds__(kThreads) probe_planes(const PlaneArgs p) {
-  constexpr int N1 = WY1 * WX1, N2 = WY2 * WX2;
-  constexpr int T1 = Epi == kFirst49 ? (kFirst + 7) / 8 : N1 / 8;
-  constexpr int T2 = Epi == kFirst49 ? (kFirst + 7) / 8 : N2 / 8;
-  static_assert(N1 % 8 == 0 && N2 % 8 == 0, "windows of whole tiles");
+  constexpr int T = (kFirst + 7) / 8;
   __shared__ uint4 s_g[kP2 * kRowU4];
-  __shared__ float s_p1[kP2 * 8 * T1];
-  __shared__ float s_p2[kP2 * 8 * T2];
+  __shared__ float s_p1[kP2 * 8 * T];
+  __shared__ float s_p2[kP2 * 8 * T];
   const int e = blockIdx.x;
   const int tid = threadIdx.x;
   stage_g(p.g + static_cast<size_t>(e) * kP2 * kC, s_g, tid, kThreads);
@@ -251,46 +259,102 @@ __global__ void __launch_bounds__(kThreads) probe_planes(const PlaneArgs p) {
   __syncthreads();
   const GFrag a = load_gfrag(s_g);
   const int j = p.jj[e];
-  const Window w1 = edge_window(p.fmap1, j, p.F, p.H1, p.W1,
-                                kFixed ? 0 : p.by1[e], kFixed ? 0 : p.bx1[e],
-                                WX1);
-  const Window w2 = edge_window(p.fmap2, j, p.F, p.H2, p.W2,
-                                kFixed ? 0 : p.by2[e], kFixed ? 0 : p.bx2[e],
-                                WX2);
-  two_level_tiles<T1, T2>(a, w1, w2, s_p1, s_p2, tid / 32, kWarps);
+  const Window w1 =
+      edge_window(p.fmap1, j, p.F, p.H1, p.W1, p.by1[e], p.bx1[e], 24);
+  const Window w2 =
+      edge_window(p.fmap2, j, p.F, p.H2, p.W2, p.by2[e], p.bx2[e], 16);
+  two_level_tiles<T, T>(a, w1, w2, s_p1, s_p2, tid / 32, kWarps);
   __syncthreads();
 
-  if constexpr (Epi == kFirst49) {
-    const size_t base = static_cast<size_t>(e) * kP2 * kFirst;
-    float* o1 = static_cast<float*>(p.out1) + base;
-    float* o2 = static_cast<float*>(p.out2) + base;
-    for (int i = tid; i < kP2 * kFirst; i += kThreads) {
-      const int r = i / kFirst, c = i % kFirst;
-      o1[i] = s_p1[r * 8 * T1 + c];
-      o2[i] = s_p2[r * 8 * T2 + c];
-    }
-  } else {
-    int sh1 = 0, sh2 = 0;
-    if constexpr (Epi == kRoll) {
-      sh1 = ((p.sh1[e] % N1) + N1) % N1;
-      sh2 = ((p.sh2[e] % N2) + N2) % N2;
-    }
-    store_bf16(static_cast<bf16*>(p.out1) + static_cast<size_t>(e) * kP2 * N1,
-               kP2 * N1, tid, kThreads, [&](int i) {
-                 const int r = i / N1;
-                 int c = i % N1 + sh1;
-                 if (c >= N1) c -= N1;
-                 return s_p1[r * N1 + c];
-               });
-    store_bf16(static_cast<bf16*>(p.out2) + static_cast<size_t>(e) * kP2 * N2,
-               kP2 * N2, tid, kThreads, [&](int i) {
-                 const int r = i / N2;
-                 int c = i % N2 + sh2;
-                 if (c >= N2) c -= N2;
-                 return s_p2[r * N2 + c];
-               });
+  const size_t base = static_cast<size_t>(e) * kP2 * kFirst;
+  float* o1 = static_cast<float*>(p.out1) + base;
+  float* o2 = static_cast<float*>(p.out2) + base;
+  for (int i = tid; i < kP2 * kFirst; i += kThreads) {
+    const int r = i / kFirst, c = i % kFirst;
+    o1[i] = s_p1[r * 8 * T + c];
+    o2[i] = s_p2[r * 8 * T + c];
   }
 }
+
+// K5 and K8 on the ring of bulk copies (planes_ring.cuh:ring_body, K2's
+// design): one spec per instantiation.
+enum RingProbe { kRollK5 = 0, kW12x16 = 1, kFixedW = 2 };
+
+// The ring of each: kStages stages of kRows window positions, kWarps
+// consumer warps (+ 1 producer), and the blocks asked for on each SM (at
+// most what fits). Chosen by a sweep (dpvo_torch/scripts/ring_sweep.py,
+// PERF.md section 6).
+template <int P>
+struct ProbeRing;
+template <>
+struct ProbeRing<kRollK5> {  // planes_roll
+  static constexpr int kStages = 3, kRows = 64, kWarps = 2, kBlocksPerSm = 4;
+};
+template <>
+struct ProbeRing<kW12x16> {  // planes_w12x16
+  static constexpr int kStages = 3, kRows = 64, kWarps = 2, kBlocksPerSm = 4;
+};
+template <>
+struct ProbeRing<kFixedW> {  // planes_fixedw
+  static constexpr int kStages = 3, kRows = 64, kWarps = 2, kBlocksPerSm = 4;
+};
+
+// K5: K2's windows, rolled by sh1 / sh2 (each taken modulo its level's
+// positions; it may be negative or past them). K8: 12 x 16 windows at both
+// levels, at (by, bx) or, for fixedw, at (0, 0) (by*, bx* unread). The g
+// rows are g[e]; an edge whose frame jj is out of range is all zero.
+template <int P>
+struct ProbeSpec {
+  using Ring = ProbeRing<P>;
+  static constexpr bool kRoll = P == kRollK5, kFixed = P == kFixedW;
+  static constexpr int kWY1 = 12, kWX1 = kRoll ? 24 : 16;
+  static constexpr int kWY2 = kRoll ? 10 : 12, kWX2 = 16;
+  using Args = PlaneArgs;
+  struct Edge {
+    int j;
+    int4 base;
+    int2 sh;
+  };
+  static __device__ __forceinline__ Edge edge(const Args& a, int e) {
+    Edge x{a.jj[e], make_int4(0, 0, 0, 0), make_int2(0, 0)};
+    if constexpr (!kFixed)
+      x.base = make_int4(a.by1[e], a.bx1[e], a.by2[e], a.bx2[e]);
+    if constexpr (kRoll) {
+      constexpr int n1 = kWY1 * kWX1, n2 = kWY2 * kWX2;
+      x.sh = make_int2(((a.sh1[e] % n1) + n1) % n1,
+                       ((a.sh2[e] % n2) + n2) % n2);
+    }
+    return x;
+  }
+  static __device__ __forceinline__ bool ok(const Args& a, const Edge& x) {
+    return x.j >= 0 && x.j < a.F;
+  }
+  static __device__ __forceinline__ int frame(const Edge& x) { return x.j; }
+  static __device__ __forceinline__ int4 base(const Edge& x) { return x.base; }
+  static __device__ __forceinline__ int2 shift(const Edge& x) { return x.sh; }
+  static __device__ __forceinline__ const bf16* g(const Args& a, const Edge&,
+                                                  int e) {
+    return a.g + static_cast<size_t>(e) * kP2 * kC;
+  }
+};
+
+template <int P>
+__global__ void __launch_bounds__(planes_ring::Geom<ProbeSpec<P>>::kThreads,
+                                  ProbeRing<P>::kBlocksPerSm)
+probe_planes_ring(const PlaneArgs p) {
+  planes_ring::ring_body<ProbeSpec<P>>(p);
+}
+
+// probe_planes_ring<P> for ring_shape
+template <int P>
+struct ProbeRingKernel {
+  static const void* fn() {
+    return reinterpret_cast<const void*>(probe_planes_ring<P>);
+  }
+  static constexpr int kThreads = planes_ring::Geom<ProbeSpec<P>>::kThreads;
+  static constexpr int kSmem = planes_ring::Geom<ProbeSpec<P>>::kSmem;
+  static constexpr int kBlocksPerSm = ProbeRing<P>::kBlocksPerSm;
+};
 
 // K6 dot_kernel / dot_kernel2 as a persistent streaming pipeline (the note
 // at the head of this file).
@@ -538,6 +602,43 @@ void ring_fields(int* f) {
   f[2] = DotsRing<N>::kWarps;
 }
 
+// probe_planes_ring<P>'s launch shape for E edges on `device` (the current
+// device), and its ring as (stages, positions per stage, consumer warps)
+template <int P>
+cudaError_t probe_ring_shape(int E, int device, RingShape* sh, int* ring) {
+  ring[0] = ProbeRing<P>::kStages;
+  ring[1] = ProbeRing<P>::kRows;
+  ring[2] = ProbeRing<P>::kWarps;
+  const cudaError_t err = ring_shape<ProbeRingKernel<P>>(E, device, sh);
+  if (err != cudaSuccess) cudaGetLastError();  // see dots_setup
+  return err;
+}
+
+cudaError_t ring_probe_shape(int which, int E, int device, RingShape* sh,
+                             int* ring) {
+  switch (which) {
+    case kRollK5:
+      return probe_ring_shape<kRollK5>(E, device, sh, ring);
+    case kW12x16:
+      return probe_ring_shape<kW12x16>(E, device, sh, ring);
+    case kFixedW:
+      return probe_ring_shape<kFixedW>(E, device, sh, ring);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// probe_planes_ring<P> on the persistent grid
+template <int P>
+cudaError_t launch_ring(const PlaneArgs& p, int device, cudaStream_t s) {
+  RingShape sh;
+  int ring[3];
+  const cudaError_t err = probe_ring_shape<P>(p.E, device, &sh, ring);
+  if (err != cudaSuccess) return err;
+  probe_planes_ring<P><<<sh.grid, sh.threads, sh.smem, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry enqueues its kernel on `stream` of CUDA device `device` and
@@ -572,9 +673,8 @@ extern "C" int probe_planes_roll_launch(
                            out2, E, F, H1, W1, H2, W2);
   p.sh1 = static_cast<const int*>(sh1);
   p.sh2 = static_cast<const int*>(sh2);
-  probe_planes<12, 24, 10, 16, kRoll, false, false>
-      <<<E, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_ring<kRollK5>(p, device, static_cast<cudaStream_t>(stream)));
 }
 
 // K7. out1, out2 (E * 9, 49) f32. streams = 1 also reads s1, s2 (E * 9)
@@ -602,11 +702,9 @@ extern "C" int probe_planes_first49_launch(
     p.nS1 = nS1;
     p.nS2 = nS2;
     p.sink = static_cast<unsigned*>(sink);
-    probe_planes<12, 24, 10, 16, kFirst49, true, false>
-        <<<E, kThreads, 0, s>>>(p);
+    probe_planes<true><<<E, kThreads, 0, s>>>(p);
   } else {
-    probe_planes<12, 24, 10, 16, kFirst49, false, false>
-        <<<E, kThreads, 0, s>>>(p);
+    probe_planes<false><<<E, kThreads, 0, s>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -623,13 +721,26 @@ extern "C" int probe_planes_w12x16_launch(
   const PlaneArgs p = plane_args(g, fmap1, fmap2, jj, by1, bx1, by2, bx2,
                                  out1, out2, E, F, H1, W1, H2, W2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fixed)
-    probe_planes<12, 16, 12, 16, kPlanes, false, true>
-        <<<E, kThreads, 0, s>>>(p);
-  else
-    probe_planes<12, 16, 12, 16, kPlanes, false, false>
-        <<<E, kThreads, 0, s>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(fixed ? launch_ring<kFixedW>(p, device, s)
+                                : launch_ring<kW12x16>(p, device, s));
+}
+
+// The launch shape probe_planes_roll_launch (which = 0) or
+// probe_planes_w12x16_launch (1: fixed = 0, 2: fixed = 1) takes for E edges
+// on `device`: info[0 .. 4] = grid, threads, dynamic shared memory bytes,
+// registers per thread, blocks per SM; info[5 .. 7] = the ring's stages,
+// window positions per stage and consumer warps. Any other `which` returns
+// an error.
+extern "C" int probe_planes_ring_shape(int which, int E, int device,
+                                       int* info) {
+  if (const int err = set_device(device)) return err;
+  RingShape sh;
+  const cudaError_t err = ring_probe_shape(which, E, device, &sh, info + 5);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[5] = {sh.grid, sh.threads, sh.smem, sh.regs,
+                       sh.blocks_per_sm};
+  for (int k = 0; k < 5; ++k) info[k] = vals[k];
+  return 0;
 }
 
 // K6 dots. variant 0: out (E, 9, 384) f32 from all 384 rows of each window

@@ -63,24 +63,23 @@ select_launches = 0
 _lib = None
 
 
+# the C entries of csrc/corr_fused.cu and their argument types
+SIGNATURES = {
+    'corr_planes_launch': ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 +
+                           [ctypes.c_void_p]),
+    'corr_planes_shape': [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    'corr_select_launch': ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 +
+                           [ctypes.c_void_p]),
+}
+
+
 def build():
     """Compile (once per source hash) and load csrc/corr_fused.cu. Returns
     the path of the shared library (ptxas log beside it as .log)."""
     global _lib
     lib, so = cuda_lib.load('corr_fused')
     if _lib is None:
-        lib.corr_planes_launch.argtypes = ([ctypes.c_void_p] * 11 +
-                                           [ctypes.c_int] * 9 +
-                                           [ctypes.c_void_p])
-        lib.corr_planes_launch.restype = ctypes.c_int
-        lib.corr_planes_shape.argtypes = [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
-        lib.corr_planes_shape.restype = ctypes.c_int
-        lib.corr_select_launch.argtypes = ([ctypes.c_void_p] * 8 +
-                                           [ctypes.c_int] * 5 +
-                                           [ctypes.c_void_p])
-        lib.corr_select_launch.restype = ctypes.c_int
-        _lib = lib
+        _lib = cuda_lib.bind(lib, SIGNATURES)
     return so
 
 

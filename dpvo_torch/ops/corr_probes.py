@@ -15,6 +15,12 @@ kernels; one wrapper per instantiation:
                       twodots, rank3)
   planes_fixedw   K8  the same, mode fixedw
 
+K5 and K8 run on K2's design (csrc/planes_ring.cuh, shared with
+ops/corr_fused.py's bf16 kernel): a persistent grid, window rows streamed
+into a shared-memory ring by bulk copies, dots on the tensor cores; each
+instantiation's ring is fixed at compile time (PLANES_RING) and its launch
+shape is `planes_ring_shape`.
+
 Inputs are in the port's terms: unpadded channels-last bf16 maps, the
 edges' pre-gathered source rows g9 (E, 9, 128), int32 target frames jj and
 window bases by, bx in image coordinates; positions outside the map read
@@ -44,6 +50,12 @@ DOTS_W = 384             # K6 dot_kernel's window rows
 DOTS2_W = 256            # K6 dot_kernel2 reads the first 256 of them
 SLAB = 16                # K6 fused_kernel's 16 x 16 window
 _CHUNK = 512             # edges per chunk of the plain versions
+# the ring of each instantiation on K2's design (csrc/corr_probes.cu:
+# ProbeRing): stages, window positions per stage, consumer warps, blocks
+# asked for on each SM
+PLANES_RING = {'planes_roll': (3, 64, 2, 4), 'planes_w12x16': (3, 64, 2, 4),
+               'planes_fixedw': (3, 64, 2, 4)}
+_RING_WHICH = {'planes_roll': 0, 'planes_w12x16': 1, 'planes_fixedw': 2}
 
 launches = dict.fromkeys((
     'planes_pair', 'planes_roll', 'dots', 'dots2', 'slab', 'planes_first49',
@@ -57,28 +69,28 @@ def reset_launches():
         launches[k] = 0
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entries of csrc/corr_probes.cu and their argument types
+SIGNATURES = {
+    'probe_planes_pair_launch': [_P] * 10 + [_I] * 7 + [_P],
+    'probe_planes_roll_launch': [_P] * 12 + [_I] * 7 + [_P],
+    'probe_planes_first49_launch': ([_P] * 14 + [_I] * 2 + [_P] * 3 +
+                                    [_I] * 8 + [_P]),
+    'probe_planes_w12x16_launch': [_P] * 10 + [_I] * 8 + [_P],
+    'probe_planes_ring_shape': [_I] * 3 + [_P],
+    'probe_dots_launch': [_P] * 3 + [_I] * 4 + [_P],
+    'probe_dots_shape': [_I] * 4 + [_P],
+    'probe_slab_launch': [_P] * 5 + [_I] * 4 + [_P],
+}
+
+
 def build():
     """Compile (once per source hash) and load csrc/corr_probes.cu. Returns
     the path of the shared library (ptxas log beside it as .log)."""
     global _lib
     lib, so = cuda_lib.load('corr_probes')
     if _lib is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        sigs = {
-            'probe_planes_pair_launch': [P] * 10 + [I] * 7 + [P],
-            'probe_planes_roll_launch': [P] * 12 + [I] * 7 + [P],
-            'probe_planes_first49_launch': ([P] * 14 + [I] * 2 + [P] * 3 +
-                                            [I] * 8 + [P]),
-            'probe_planes_w12x16_launch': [P] * 10 + [I] * 8 + [P],
-            'probe_dots_launch': [P] * 3 + [I] * 4 + [P],
-            'probe_dots_shape': [I] * 4 + [P],
-            'probe_slab_launch': [P] * 5 + [I] * 4 + [P],
-        }
-        for name, argtypes in sigs.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = cuda_lib.bind(lib, SIGNATURES)
     return so
 
 
@@ -148,6 +160,22 @@ def planes_w12x16_plain(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2):
     wy, wx = WV
     return (window_dots(g9, fmap1, jj, by1, bx1, wx, wy * wx).bfloat16(),
             window_dots(g9, fmap2, jj, by2, bx2, wx, wy * wx).bfloat16())
+
+
+def ring_rows(key, jj, by1, bx1, by2, bx2, F, H1, W1, H2, W2):
+    """(E,) int64: the window positions of each edge that lie inside the
+    map, at both levels, for instantiation `key` of PLANES_RING (for
+    planes_fixedw pass zero bases) -- the 256-byte channel rows its ring
+    copies for the edge (0 for an edge whose jj is out of range)."""
+    wins = {'planes_roll': ((WY, WX), (WY2, WX2))}.get(key, (WV, WV))
+    jj = jj.long()
+    n = torch.zeros_like(jj)
+    for by, bx, (wy, wx), H, W in ((by1, bx1, wins[0], H1, W1),
+                                   (by2, bx2, wins[1], H2, W2)):
+        y = by.long()[:, None] + torch.arange(wy, device=jj.device)
+        x = bx.long()[:, None] + torch.arange(wx, device=jj.device)
+        n += ((y >= 0) & (y < H)).sum(1) * ((x >= 0) & (x < W)).sum(1)
+    return torch.where((jj >= 0) & (jj < F), n, 0)
 
 
 def planes_fixedw_plain(g9, fmap1, fmap2, jj):
@@ -264,8 +292,9 @@ def planes_pair(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2):
 
 
 def planes_roll(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2, sh1, sh2):
-    """K5: K2's planes rolled by the per-edge shifts sh1 / sh2 (see
-    planes_roll_plain). CPU tensors take the plain version."""
+    """K5: K2's planes rolled by the per-edge shifts sh1 / sh2, any int32
+    (see planes_roll_plain), on K2's ring on the card. CPU tensors take the
+    plain version."""
     dev = _device(g9)
     if dev.type == 'cpu':
         return planes_roll_plain(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2,
@@ -338,7 +367,8 @@ def _w12x16(key, fixed, g9, fmap1, fmap2, jj, bases):
 
 def planes_w12x16(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2):
     """K8 (full / twodots / rank3): 12 x 16 windows at both levels (see
-    planes_w12x16_plain). CPU tensors take the plain version."""
+    planes_w12x16_plain), on K2's ring on the card. CPU tensors take the
+    plain version."""
     if g9.device.type == 'cpu':
         return planes_w12x16_plain(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2)
     return _w12x16('planes_w12x16', False, g9, fmap1, fmap2, jj,
@@ -346,11 +376,37 @@ def planes_w12x16(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2):
 
 
 def planes_fixedw(g9, fmap1, fmap2, jj):
-    """K8 fixedw: 12 x 16 windows at (0, 0) of each edge's frame. CPU
-    tensors take the plain version."""
+    """K8 fixedw: 12 x 16 windows at (0, 0) of each edge's frame, on K2's
+    ring on the card. CPU tensors take the plain version."""
     if g9.device.type == 'cpu':
         return planes_fixedw_plain(g9, fmap1, fmap2, jj)
     return _w12x16('planes_fixedw', True, g9, fmap1, fmap2, jj, None)
+
+
+def ring_smem(key):
+    """Dynamic shared memory per block of instantiation `key` on the ring
+    (a key of PLANES_RING), in bytes: the stages of 256-byte channel rows,
+    two slots of an edge's 9 g rows, its four window bases (and for
+    planes_roll its two rolls, padded to 16 bytes), and 8-byte barriers
+    (full and empty per stage, two per slot)."""
+    stages, rows = PLANES_RING[key][:2]
+    slot = P2 * C * 2 + (32 if key == 'planes_roll' else 16)
+    return stages * rows * C * 2 + 2 * slot + 8 * (2 * stages + 4)
+
+
+def planes_ring_shape(key, E, device=0):
+    """The launch shape of instantiation `key` (a key of PLANES_RING) for E
+    edges, as the CUDA runtime reports it: grid, threads, smem (dynamic
+    bytes), regs, resident (blocks per SM), and its ring: stages, rows
+    (window positions per stage), warps (consumer warps)."""
+    if _lib is None:
+        build()
+    info = (ctypes.c_int * 8)()
+    err = _lib.probe_planes_ring_shape(_RING_WHICH[key], E, device, info)
+    if err != 0:
+        raise RuntimeError(f'probe_planes_ring_shape: CUDA error {err}')
+    return dict(zip(('grid', 'threads', 'smem', 'regs', 'resident',
+                     'stages', 'rows', 'warps'), info))
 
 
 def dots_shape(key, E, device=0):

@@ -43,6 +43,22 @@ def source_hash(source):
     return h.hexdigest()[:12]
 
 
+def compile_source(source, so):
+    """nvcc `source` (its headers beside it) into the shared library `so`,
+    the compiler's output beside it as a .log file. The library appears
+    atomically: concurrent processes agree on one file."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+                           str(source)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed on {source.name} '
+                           f'({proc.returncode}):\n{proc.stdout}\n'
+                           f'{proc.stderr}')
+    so.with_suffix('.log').write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)
+
+
 def load(name):
     """Compile csrc/<name>.cu (once per hash of it, the headers and the
     flags) and load it; later calls return the loaded library at once.
@@ -50,18 +66,20 @@ def load(name):
     if name in _loaded:
         return _loaded[name]
     source = CSRC / f'{name}.cu'
-    tag = source_hash(source)
-    so = BUILD_DIR / f'lib{name}_{tag}.so'
+    so = BUILD_DIR / f'lib{name}_{source_hash(source)}.so'
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-                               str(source)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed on {source.name} '
-                               f'({proc.returncode}):\n{proc.stdout}\n'
-                               f'{proc.stderr}')
-        so.with_suffix('.log').write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)    # atomic: concurrent processes agree on one file
+        compile_source(source, so)
     _loaded[name] = (ctypes.CDLL(str(so)), so)
     return _loaded[name]
+
+
+def bind(lib, signatures):
+    """Sets the argument types (and an int result) of each C entry of
+    `signatures` ({name: [ctypes types]}) that `lib` exports; returns
+    lib."""
+    for name, argtypes in signatures.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib

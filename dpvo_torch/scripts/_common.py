@@ -126,6 +126,28 @@ def time_paired(fn, other, rounds=5, reps=20):
     return float(np.median(ta)), float(np.median(tb)), ratios
 
 
+def paired(a, b):
+    """Two calls timed in turns (time_paired: device time of back-to-back
+    launches), each given as (name, fn, bytes its kernel copies from L2 to
+    the SMs or None); the bytes give its rate. Prints one line; returns
+    {'ms', 'other_ms', 'ratio' (a / b), 'ratios' (the rounds'),
+    'tb_per_s', 'other_tb_per_s'}."""
+    (name, fn, copied), (other_name, other, other_copied) = a, b
+    ms, other_ms, ratios = time_paired(fn, other)
+    rates = [None if c is None else c / t / 1e9
+             for c, t in ((copied, ms), (other_copied, other_ms))]
+    row = dict(ms=ms, other_ms=other_ms, ratio=ms / other_ms, ratios=ratios,
+               tb_per_s=rates[0], other_tb_per_s=rates[1])
+    tail = ''.join(f'; {n} copies {c / 1e9!r} GB from L2, {r!r} TB/s'
+                   for n, c, r in ((name, copied, rates[0]),
+                                   (other_name, other_copied, rates[1]))
+                   if c is not None)
+    print(f'  in turns (device time): {name} {ms!r} ms, {other_name} '
+          f'{other_ms!r} ms, ratio {row["ratio"]!r} (rounds '
+          f'{min(ratios)!r} .. {max(ratios)!r}){tail}', flush=True)
+    return row
+
+
 def compare(got, ref):
     """max |got - ref| and max |ref| over the outputs, and whether every
     entry is within its bound: bf16 outputs one bf16 rounding apart,

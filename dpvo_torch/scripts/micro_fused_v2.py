@@ -43,11 +43,10 @@ def roll_shifts(xi1, bx1, xi2, bx2):
     return sh1.int(), sh2.int()
 
 
-def main(device='cuda', scale=1.0, seed=0):
-    """Runs K4 and K5 (and K2, K3 for reference) against their plain
-    versions; returns {'E', 'F', 'variants': {name: row}, 'reference':
-    {name: row}}."""
-    dev = cm.device(device)
+def inputs(dev, scale=1.0, seed=0):
+    """The probe's seeded inputs on dev: E, F, the planes' arguments
+    `args` (g9, fmap1, fmap2, jj, by1, bx1, by2, bx2), the rolls sh1, sh2
+    and K2's / K3's window rules w1, w2 (ops/corr_fused.window_base)."""
     E = cm.scaled(E0, scale, 32)
     F = max(2, round(F0 * scale))
     rng = np.random.default_rng(seed)
@@ -64,10 +63,23 @@ def main(device='cuda', scale=1.0, seed=0):
     xi1, by1, bx1 = w1[0], w1[4], w1[5]
     xi2, by2, bx2 = w2[0], w2[4], w2[5]
     sh1, sh2 = roll_shifts(xi1, bx1, xi2, bx2)
+    return dict(E=E, F=F, args=(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2),
+                sh=(sh1, sh2), w1=w1, w2=w2)
+
+
+def main(device='cuda', scale=1.0, seed=0):
+    """Runs K4 and K5 (and K2, K3 for reference) against their plain
+    versions, and on the card K5 and K4 in turns (device time); returns
+    {'E', 'F', 'variants': {name: row}, 'reference': {name: row},
+    'paired': {'planes_roll / planes_pair': _common.paired's dict}}."""
+    dev = cm.device(device)
+    inp = inputs(dev, scale, seed)
+    E, F, args, (sh1, sh2), w1, w2 = (inp[k] for k in ('E', 'F', 'args',
+                                                       'sh', 'w1', 'w2'))
+    g9, fmap1, fmap2, jj, by1, bx1, by2, bx2 = args
     print(f'micro_fused_v2: E = {E}, F = {F}, maps {H}x{W} / {H2}x{W2}',
           flush=True)
 
-    args = (g9, fmap1, fmap2, jj, by1, bx1, by2, bx2)
     n1, n2 = cp.WY * cp.WX, cp.WY2 * cp.WX2
     nb = (cm.nbytes(g9, jj, by1, bx1, by2, bx2) + E * P2 * (n1 + n2) * 2 +
           cm.map_bytes(jj, *cm.window_yx(by1, bx1, cp.WX, n1), F, H, W) +
@@ -105,7 +117,15 @@ def main(device='cuda', scale=1.0, seed=0):
         lambda: [corr_fused.select_plain(*a) for a in sel],
         sum(cm.nbytes(*a[:7]) for a in sel) + 2 * E * 441 * 4,
         2 * E * 441 * 12, dev)
-    return dict(E=E, F=F, variants=rows, reference=ref)
+    paired = {}
+    if dev.type == 'cuda':
+        copied = (int(cp.ring_rows('planes_roll', jj, by1, bx1, by2, bx2, F,
+                                   H, W, H2, W2).sum()) + E * P2) * C * 2
+        paired['planes_roll / planes_pair'] = cm.paired(
+            ('planes_roll (K5)', lambda: cp.planes_roll(*args, sh1, sh2),
+             copied), ('planes_pair (K4)', lambda: cp.planes_pair(*args),
+                       None))
+    return dict(E=E, F=F, variants=rows, reference=ref, paired=paired)
 
 
 if __name__ == '__main__':

@@ -30,10 +30,10 @@ C, P2 = cm.C, cp.P2
 SCRIPT = 'scripts/micro_kernel_variants.py'
 
 
-def main(device='cuda', scale=1.0, seed=0):
-    """Runs w12x16 and fixedw against their plain versions; returns
-    {'E', 'F', 'variants': {name: row}}."""
-    dev = cm.device(device)
+def inputs(dev, scale=1.0, seed=0):
+    """The probe's seeded inputs on dev: E, F and w12x16's arguments
+    `args` (g9, fmap1, fmap2, jj, by1, bx1, by2, bx2); fixedw takes the
+    first four."""
     E = cm.scaled(E0, scale, 32)
     F = max(2, round(F0 * scale))
     rng = np.random.default_rng(seed)
@@ -46,13 +46,24 @@ def main(device='cuda', scale=1.0, seed=0):
                   4 * rng.integers(0, 2, E), dev)
     by2 = cm.ints(rng.integers(0, H2 - WY, E), dev)
     bx2 = cm.ints(4 * rng.integers(0, 2, E), dev)
+    return dict(E=E, F=F, args=(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2))
+
+
+def main(device='cuda', scale=1.0, seed=0):
+    """Runs w12x16 and fixedw against their plain versions, and on the card
+    the two in turns (device time); returns {'E', 'F', 'variants': {name:
+    row}, 'paired': {'planes_w12x16 / planes_fixedw': _common.paired's
+    dict}}."""
+    dev = cm.device(device)
+    inp = inputs(dev, scale, seed)
+    E, F, args = inp['E'], inp['F'], inp['args']
+    g9, fmap1, fmap2, jj, by1, bx1, by2, bx2 = args
     print(f'micro_kernel_variants: E = {E}, F = {F}, maps {H1}x{W1} / '
           f'{H2}x{W2}, windows {WY}x{WX}', flush=True)
 
     n = WY * WX
     out_b = 2 * E * P2 * n * 2
     flops = 2 * E * P2 * 2 * n * C
-    args = (g9, fmap1, fmap2, jj, by1, bx1, by2, bx2)
     rows = {}
     rows['planes_w12x16'] = cm.run(
         'planes_w12x16 (K8 full / twodots / rank3)', 'planes_w12x16',
@@ -71,7 +82,18 @@ def main(device='cuda', scale=1.0, seed=0):
         cm.map_bytes(jj, *cm.window_yx(z, z, WX, n), F, H1, W1) +
         cm.map_bytes(jj, *cm.window_yx(z, z, WX, n), F, H2, W2),
         flops, dev)
-    return dict(E=E, F=F, variants=rows)
+    paired = {}
+    if dev.type == 'cuda':
+        shp = (F, H1, W1, H2, W2)
+        copied = [(int(cp.ring_rows(key, jj, *b, *shp).sum()) + E * P2) * C
+                  * 2 for key, b in (('planes_w12x16', (by1, bx1, by2, bx2)),
+                                     ('planes_fixedw', (z, z, z, z)))]
+        paired['planes_w12x16 / planes_fixedw'] = cm.paired(
+            ('planes_w12x16 (K8)', lambda: cp.planes_w12x16(*args),
+             copied[0]),
+            ('planes_fixedw (K8 fixedw)',
+             lambda: cp.planes_fixedw(g9, fmap1, fmap2, jj), copied[1]))
+    return dict(E=E, F=F, variants=rows, paired=paired)
 
 
 if __name__ == '__main__':

@@ -47,9 +47,9 @@ def sass_loads(so):
         return None
     sass = subprocess.run([tool, '-sass', str(so)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    # probe_planes<12, 24, 10, 16, kFirst49, kStreams, false>
-    want = {'ILi12ELi24ELi10ELi16ELi2ELb0ELb0E': 'planes_first49',
-            'ILi12ELi24ELi10ELi16ELi2ELb1ELb0E': 'planes_first49_streams'}
+    # probe_planes<kStreams>
+    want = {'12probe_planesILb0E': 'planes_first49',
+            '12probe_planesILb1E': 'planes_first49_streams'}
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r'Function : (\S+)', line)

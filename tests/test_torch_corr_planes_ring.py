@@ -1,18 +1,24 @@
-"""K2's kernel for bf16 maps (csrc/corr_fused.cu:corr_planes_ring), on the
-CPU: its dataflow emulated in numpy against the plain planes
-(ops/corr_fused.py:planes_plain), its constants read from the source, and
-its ring's barrier-parity protocol run in random interleavings.
+"""The kernels on the planes ring (csrc/planes_ring.cuh:ring_body) on the
+CPU: K2 for bf16 maps (csrc/corr_fused.cu:corr_planes_ring) and the probes
+K5 (planes_roll) and K8 (planes_w12x16, planes_fixedw) of
+csrc/corr_probes.cu:probe_planes_ring. Their dataflow emulated in numpy
+against the plain planes (ops/corr_fused.py:planes_plain,
+ops/corr_probes.py:planes_*_plain), their constants read from the sources,
+and the ring's barrier-parity protocol run in random interleavings.
 
 The emulation follows the kernel step by step: per edge its window bases
-(far above the map for an edge whose kk or jj is out of range), per
-producer lane r its window row's in-map run of positions, per stage of
-RING_ROWS positions the part of each lane's run that falls in it (one bulk
-copy; every other slot keeps the stale row of an earlier stage, poisoned
-with NaN here, as is the g slot of an edge that copies none), the mma dot with the channels permuted identically in A and
-B (f32 sums of bf16 inputs, one per k-step of 16 channels), and the
-epilogue that writes columns outside the map as zero, trades columns
-within each quad of lanes so that a warp stores a pair of tiles 16
-columns at a time, and rounds to bf16.
+(far above the map for an edge whose source row or frame is out of range;
+(0, 0) for fixedw) and rolls (K5, each taken modulo its level's positions),
+per producer lane r its window row's in-map run of positions, landing in
+the ring at the same positions or, rolled, at slot (q - sh) mod N of its
+level in at most two pieces, per stage of `rows` positions the part of each
+piece that falls in it (one bulk copy; every other slot keeps the stale row
+of an earlier stage, poisoned with NaN here, as is the g slot of an edge
+that copies none), the mma dot with the channels permuted identically in A
+and B (f32 sums of bf16 inputs, one per k-step of 16 channels), and the
+epilogue that writes columns whose (rolled) position lies outside the map
+as zero, trades columns within each quad of lanes so that a warp stores a
+pair of tiles 16 columns at a time, and rounds to bf16.
 Bound against the plain version: one bf16 rounding of the same f32 sums in
 another order, 2^-7 |plain| + 1e-5 max|plain|; entries outside the map
 exactly zero."""
@@ -24,42 +30,103 @@ import pytest
 import torch
 
 from dpvo_torch.ops import corr_fused as cf
+from dpvo_torch.ops import corr_probes as cp
 
-SRC = Path(cf.__file__).resolve().parent.parent / 'csrc' / 'corr_fused.cu'
+CSRC = Path(cf.__file__).resolve().parent.parent / 'csrc'
+SRC = CSRC / 'corr_fused.cu'
+PROBES_SRC = CSRC / 'corr_probes.cu'
 C, P2 = cf.C, cf.P2
 N1, N2 = cf.WY * cf.WX, cf.WY2 * cf.WX2
 FAR = -(1 << 28)
 
 
-def _row_run(r, base, H1, W1, H2, W2):
-    """The kernel's row_run: window row r of an edge (r < 12 at level 1,
+class Spec:
+    """One kernel on the ring: its windows (wy1, wx1, wy2, wx2), its ring
+    (stages, rows per stage, consumer warps), whether it rolls (K5), puts
+    its windows at (0, 0) (fixedw), and takes its g rows as g[kk[e]] (K2)
+    or g[e]."""
+
+    def __init__(self, key, wins, ring, roll=False, fixed=False, kk=False):
+        self.key = key
+        (self.wy1, self.wx1), (self.wy2, self.wx2) = wins
+        self.stages, self.rows, self.warps = ring[:3]
+        self.roll, self.fixed, self.kk = roll, fixed, kk
+        self.n1, self.n2 = self.wy1 * self.wx1, self.wy2 * self.wx2
+        self.n = self.n1 + self.n2
+
+
+K2_WINS = ((cf.WY, cf.WX), (cf.WY2, cf.WX2))
+SPECS = {
+    'corr_planes': Spec('corr_planes', K2_WINS, (cf.RING_STAGES,
+                                                  cf.RING_ROWS,
+                                                  cf.RING_WARPS), kk=True),
+    'planes_roll': Spec('planes_roll', K2_WINS, cp.PLANES_RING['planes_roll'],
+                        roll=True),
+    'planes_w12x16': Spec('planes_w12x16', (cp.WV, cp.WV),
+                          cp.PLANES_RING['planes_w12x16']),
+    'planes_fixedw': Spec('planes_fixedw', (cp.WV, cp.WV),
+                          cp.PLANES_RING['planes_fixedw'], fixed=True),
+}
+
+
+def _row_run(sp, r, base, H1, W1, H2, W2):
+    """The kernel's row_run: window row r of an edge (r < wy1 at level 1,
     then level 2) as (qa, qb, y, x0, level 2?): its positions [qa, qb)
     whose pixels lie in the map, from map pixel (y, x0) on; qa == qb for
-    none (and for the producer lanes r >= 22, which own no row)."""
-    l2 = r >= cf.WY
-    wy, wx = (r - cf.WY, cf.WX2) if l2 else (r, cf.WX)
+    none (and for the producer lanes past the windows' rows, which own
+    none)."""
+    l2 = r >= sp.wy1
+    wy, wx = (r - sp.wy1, sp.wx2) if l2 else (r, sp.wx1)
     y = (base[2] if l2 else base[0]) + wy
     bx = base[3] if l2 else base[1]
     W = W2 if l2 else W1
     x0, x1 = max(bx, 0), min(bx + wx, W)
-    if r >= cf.WY + cf.WY2 or not 0 <= y < (H2 if l2 else H1) or x0 >= x1:
+    if r >= sp.wy1 + sp.wy2 or not 0 <= y < (H2 if l2 else H1) or x0 >= x1:
         return 0, 0, 0, 0, l2
-    q0 = (N1 if l2 else 0) + wy * wx - bx
+    q0 = (sp.n1 if l2 else 0) + wy * wx - bx
     return q0 + x0, q0 + x1, y, x0, l2
 
 
-def _stage_copies(c, base, H1, W1, H2, W2):
-    """The bulk copies of stage c (positions [c * Q, c * Q + Q)), one per
-    producer lane whose row's run meets it: (q, y, x, count, level 2?)."""
-    Q = cf.RING_ROWS
+def _pieces(sp, r, qa, qb, sh):
+    """Where the run [qa, qb) of producer lane r lands in the ring's edge
+    positions: [(slot, n, row of the run)], one piece, or with a roll that
+    wraps it at its level's end two (the kernel's pa, na, pb, nb)."""
+    pa, na = qa, qb - qa
+    if not sp.roll:
+        return [(pa, na, 0)]
+    l2 = r >= sp.wy1
+    off, n = (sp.n1, sp.n2) if l2 else (0, sp.n1)
+    pa -= sh[1] if l2 else sh[0]
+    if pa < off:
+        pa += n
+    over = pa + na - (off + n)
+    if over <= 0:
+        return [(pa, na, 0)]
+    return [(pa, na - over, 0), (off, over, na - over)]
+
+
+def _stage_copies(sp, c, base, sh, H1, W1, H2, W2):
+    """The bulk copies of stage c (ring positions [c * rows, + rows)), one
+    per piece of a producer lane's run that meets it: (slot, y, x, count,
+    level 2?)."""
+    Q = sp.rows
     out = []
     for lane in range(32):
-        qa, qb, y, x0, l2 = _row_run(lane, base, H1, W1, H2, W2)
-        lo = max(qa, c * Q)
-        n = min(qb, c * Q + Q) - lo
-        if n > 0:
-            out.append((lo, y, x0 + lo - qa, n, l2))
+        qa, qb, y, x0, l2 = _row_run(sp, lane, base, H1, W1, H2, W2)
+        for pa, na, k in _pieces(sp, lane, qa, qb, sh):
+            lo = max(pa, c * Q)
+            n = min(pa + na, c * Q + Q) - lo
+            if n > 0:
+                out.append((lo, y, x0 + k + lo - pa, n, l2))
     return out
+
+
+def _edge(sp, e, Ng, F, kk, jj, by1, bx1, by2, bx2, sh1, sh2):
+    """What the producer reads of edge e: (ok, bases, rolls)."""
+    ok = 0 <= jj[e] < F and (not sp.kk or 0 <= kk[e] < Ng)
+    base = (0, 0, 0, 0) if sp.fixed else (by1[e], bx1[e], by2[e], bx2[e])
+    sh = (int(sh1[e]) % sp.n1, int(sh2[e]) % sp.n2) if sp.roll else (0, 0)
+    return ok, (base if ok else (FAR, 0, FAR, 0)), sh
 
 
 def _kstep_channels():
@@ -86,25 +153,37 @@ def _pair_cols():
 _PAIR_COLS = _pair_cols()
 
 
-def _emulate(g, f1, f2, kk, jj, by1, bx1, by2, bx2):
-    """corr_planes_ring's dataflow in numpy (module docstring). Returns the
-    planes (E, 9, 12, 24), (E, 9, 10, 16) as bf16 tensors and the window
-    rows copied per edge."""
-    E, Ng, F = len(kk), g.shape[0], f1.shape[0]
+def _in_map(sp, l2, q, base, H1, W1, H2, W2):
+    """Whether window position(s) q of a level lie in the map."""
+    by, bx, wx, H, W = ((base[2], base[3], sp.wx2, H2, W2) if l2 else
+                        (base[0], base[1], sp.wx1, H1, W1))
+    y, x = by + q // wx, bx + q % wx
+    return (y >= 0) & (y < H) & (x >= 0) & (x < W)
+
+
+def _emulate(sp, g, f1, f2, kk, jj, by1, bx1, by2, bx2, sh1, sh2):
+    """The ring kernel's dataflow for spec sp in numpy (module docstring).
+    Returns the planes (E, 9, n1), (E, 9, n2) as bf16 tensors and the
+    window rows copied per edge."""
+    E, Ng, F = len(jj), g.shape[0], f1.shape[0]
     H1, W1, H2, W2 = f1.shape[1], f1.shape[2], f2.shape[1], f2.shape[2]
-    Q = cf.RING_ROWS
-    out = np.zeros((E, P2, N1 + N2), np.float32)
+    Q = sp.rows
+    out = np.zeros((E, P2, sp.n), np.float32)
     copied = np.zeros(E, np.int64)
     ksteps = _kstep_channels()
     stale = np.full((Q, C), np.nan, np.float32)
     for e in range(E):
-        ok = 0 <= kk[e] < Ng and 0 <= jj[e] < F
-        base = (by1[e], bx1[e], by2[e], bx2[e]) if ok else (FAR, 0, FAR, 0)
+        ok, base, sh = _edge(sp, e, Ng, F, kk, jj, by1, bx1, by2, bx2, sh1,
+                             sh2)
         a = np.zeros((16, C), np.float32)          # rows 9-15 zero
-        a[:P2] = g[kk[e]] if ok else np.nan        # no copy: a stale slot
-        for c in range((N1 + N2) // Q):
+        if ok:
+            a[:P2] = g[kk[e]] if sp.kk else g[e]
+        else:
+            a[:P2] = np.nan                        # no copy: a stale slot
+        for c in range(sp.n // Q):
             stage = stale.copy()
-            for q, y, x, n, l2 in _stage_copies(c, base, H1, W1, H2, W2):
+            for q, y, x, n, l2 in _stage_copies(sp, c, base, sh, H1, W1, H2,
+                                                W2):
                 frame = (f2 if l2 else f1)[jj[e]]
                 stage[q - c * Q:q - c * Q + n] = frame[y, x:x + n]
                 copied[e] += n
@@ -114,14 +193,11 @@ def _emulate(g, f1, f2, kk, jj, by1, bx1, by2, bx2):
             masked = np.zeros((P2, Q), np.float32)
             for t in range(Q // 8):                # the epilogue's masks
                 tq = c * Q // 8 + t
-                l2 = tq >= N1 // 8
-                tl = tq - N1 // 8 if l2 else tq
-                tpr = (cf.WX2 if l2 else cf.WX) // 8
-                y = (base[2] if l2 else base[0]) + tl // tpr
-                x = (base[3] if l2 else base[1]) + (tl % tpr) * 8 + \
-                    np.arange(8)
-                H, W = (H2, W2) if l2 else (H1, W1)
-                inside = (0 <= y < H) & (x >= 0) & (x < W)
+                l2 = tq >= sp.n1 // 8
+                n = sp.n2 if l2 else sp.n1
+                col = (tq - sp.n1 // 8 if l2 else tq) * 8 + np.arange(8)
+                q = (col + sh[l2]) % n              # the rolled position
+                inside = _in_map(sp, l2, q, base, H1, W1, H2, W2)
                 masked[:, t * 8:t * 8 + 8] = np.where(
                     inside, d[:P2, t * 8:t * 8 + 8], 0.0)
             for t in range(0, Q // 8, 2):          # a warp's tile pair
@@ -129,14 +205,15 @@ def _emulate(g, f1, f2, kk, jj, by1, bx1, by2, bx2):
                 col = c * Q + t * 8                # edge position of tile t
                 out[e, :, col:col + 16] = pair[:, _PAIR_COLS]
     planes = torch.from_numpy(out).to(torch.bfloat16)
-    return (planes[..., :N1].reshape(E, P2, cf.WY, cf.WX),
-            planes[..., N1:].reshape(E, P2, cf.WY2, cf.WX2), copied)
+    return planes[..., :sp.n1], planes[..., sp.n1:], copied
 
 
-def _case(seed, E=60, F=3, Ng=8, H1=48, W1=80):
-    """bf16-valued g and maps, and window bases at all four borders, far
-    outside (past window_base's clamp, at both ends), negative bx, wholly
-    inside; kk / jj out of range (-1, Ng, F) on a few edges."""
+def _case(sp, seed, E=60, F=3, Ng=8, H1=48, W1=80):
+    """bf16-valued g (Ng rows for K2, one per edge else) and maps, and
+    window bases at all four borders of each level, far outside (past
+    window_base's clamp, at both ends), negative bx, wholly inside; kk /
+    jj out of range (-1, Ng, F) on a few edges; rolls zero, odd, negative,
+    at and past the level's positions, and the int32 extremes."""
     rng = np.random.RandomState(seed)
     H2, W2 = H1 // 4, W1 // 4
 
@@ -144,74 +221,132 @@ def _case(seed, E=60, F=3, Ng=8, H1=48, W1=80):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
             torch.bfloat16).float().numpy()
 
-    g, f1, f2 = bf(Ng, P2, C), bf(F, H1, W1, C), bf(F, H2, W2, C)
+    g = bf(Ng if sp.kk else E, P2, C)
+    f1, f2 = bf(F, H1, W1, C), bf(F, H2, W2, C)
     by1 = rng.randint(-14, H1 + 2, E)
     bx1 = 8 * rng.randint(-4, W1 // 8 + 1, E)
     by2 = rng.randint(-12, H2 + 2, E)
     bx2 = 4 * rng.randint(-5, W2 // 4 + 1, E)
     # the four borders, exactly and one past
-    by1[:4], bx1[:4] = [-11, H1 - 12, 0, H1 - 1], [0, 8, -24, W1 - 8]
-    by2[:4], bx2[:4] = [-9, H2 - 10, 0, H2 - 1], [-16, W2 - 16, 0, W2 - 4]
+    by1[:4] = [1 - sp.wy1, H1 - sp.wy1, 0, H1 - 1]
+    bx1[:4] = [0, 8, -sp.wx1, W1 - 8]
+    by2[:4] = [1 - sp.wy2, H2 - sp.wy2, 0, H2 - 1]
+    bx2[:4] = [-sp.wx2, W2 - sp.wx2, 0, W2 - 4]
     by1[4:6], bx1[4:6] = [-10 ** 6, 10 ** 6], [-10 ** 6, 10 ** 6]  # far
     by2[4:6], bx2[4:6] = [10 ** 6, -10 ** 6], [10 ** 6, -10 ** 6]
-    by1[11], bx1[11], by2[11], bx2[11] = 10, 16, 1, 2       # inside
+    by1[11], bx1[11], bx2[11] = 10, 16, 2                   # inside
+    by2[11] = min(1, H2 - sp.wy2)
     kk = rng.randint(0, Ng, E)
     jj = np.sort(rng.randint(0, F, E))
     kk[6], jj[7], kk[8], jj[9], kk[10], jj[10] = -1, -1, Ng, F, Ng + 5, -3
+    sh1 = rng.randint(-3 * sp.n1, 3 * sp.n1, E)
+    sh2 = rng.randint(-3 * sp.n2, 3 * sp.n2, E)
+    for sh, n in ((sh1, sp.n1), (sh2, sp.n2)):
+        sh[12:22] = [0, 1, -1, -7, n, n + 3, 2 * n - 1, -n, 2 ** 31 - 1,
+                     -2 ** 31]
     return [a.astype(np.int32) if a.dtype.kind == 'i' else a
-            for a in (g, f1, f2, kk, jj, by1, bx1, by2, bx2)]
+            for a in (g, f1, f2, kk, jj, by1, bx1, by2, bx2, sh1, sh2)]
 
 
-@pytest.mark.parametrize('seed', [0, 1, 2])
-def test_ring_dataflow_matches_plain(seed):
-    args = _case(seed)
-    g, f1, f2, kk, jj, by1, bx1, by2, bx2 = args
-    t = [torch.from_numpy(a) for a in args]
-    ref = cf.planes_plain(t[0].to(torch.bfloat16), t[1].to(torch.bfloat16),
-                          t[2].to(torch.bfloat16), *t[3:])
-    p1, p2, copied = _emulate(*args)
-    for got, r in zip((p1, p2), ref):
+def _plain(sp, g, f1, f2, kk, jj, by1, bx1, by2, bx2, sh1, sh2):
+    """The plain version of spec sp on the case, as (E, 9, n1), (E, 9,
+    n2) bf16."""
+    t = [torch.from_numpy(a) for a in (g, f1, f2)]
+    g, f1, f2 = (a.to(torch.bfloat16) for a in t)
+    i = [torch.from_numpy(a) for a in (kk, jj, by1, bx1, by2, bx2, sh1,
+                                       sh2)]
+    kk, jj, by1, bx1, by2, bx2, sh1, sh2 = i
+    if sp.kk:
+        p1, p2 = cf.planes_plain(g, f1, f2, kk, jj, by1, bx1, by2, bx2)
+        return p1.flatten(2), p2.flatten(2)
+    if sp.roll:
+        return cp.planes_roll_plain(g, f1, f2, jj, by1, bx1, by2, bx2, sh1,
+                                    sh2)
+    if sp.fixed:
+        return cp.planes_fixedw_plain(g, f1, f2, jj)
+    return cp.planes_w12x16_plain(g, f1, f2, jj, by1, bx1, by2, bx2)
+
+
+def _rows_in_map(sp, case):
+    """The window positions in the map per edge: what the kernel copies."""
+    g, f1, f2, kk, jj, by1, bx1, by2, bx2 = [torch.from_numpy(a)
+                                             for a in case[:9]]
+    shp = (f1.shape[0], *f1.shape[1:3], *f2.shape[1:3])
+    if sp.kk:
+        return cf.window_rows(kk, jj, by1, bx1, by2, bx2, g.shape[0], *shp)
+    if sp.fixed:
+        by1 = bx1 = by2 = bx2 = torch.zeros_like(jj)
+    return cp.ring_rows(sp.key, jj, by1, bx1, by2, bx2, *shp)
+
+
+# (spec, seed, level-1 map): K2's cases keep their ids (the seed), the
+# probes' run at 48x80 and on maps smaller than their windows
+DATAFLOW = ([('corr_planes', s, (48, 80)) for s in (0, 1, 2)] +
+            [(k, s, hw) for k in ('planes_roll', 'planes_w12x16',
+                                  'planes_fixedw')
+             for s, hw in ((0, (48, 80)), (1, (48, 80)), (2, (10, 12)))])
+
+
+@pytest.mark.parametrize(
+    'key,seed,hw', DATAFLOW,
+    ids=[str(s) if k == 'corr_planes' else f'{k}-{s}-{hw[0]}x{hw[1]}'
+         for k, s, hw in DATAFLOW])
+def test_ring_dataflow_matches_plain(key, seed, hw):
+    sp = SPECS[key]
+    case = _case(sp, seed, H1=hw[0], W1=hw[1])
+    p1, p2, copied = _emulate(sp, *case)
+    for got, r in zip((p1, p2), _plain(sp, *case)):
         got, r = got.float(), r.float()
         assert torch.isfinite(got).all()     # no stale row leaks a NaN
         bound = 2 ** -7 * r.abs() + 1e-5 * r.abs().max()
         assert bool(((got - r).abs() <= bound).all()), \
             (got - r).abs().max()
         assert bool((got[r == 0] == 0).all())
-    rows = cf.window_rows(*t[3:], g.shape[0], f1.shape[0], *f1.shape[1:3],
-                          *f2.shape[1:3])
-    np.testing.assert_array_equal(copied, rows.numpy())
-    # the case reaches every branch: partial rows, edges copying nothing,
-    # edges copying their whole windows, zero planes for bad kk / jj
-    assert (copied == 0).any() and (copied == N1 + N2).any()
-    assert ((copied > 0) & (copied < N1 + N2)).any()
-    for e in (6, 7, 8, 9, 10):
+    np.testing.assert_array_equal(copied, _rows_in_map(sp, case).numpy())
+    # the case reaches every branch: edges copying nothing, whole windows
+    # (on maps that hold them), partial rows (where bases vary or the map
+    # is smaller than the windows), zero planes for bad kk / jj
+    big = hw == (48, 80)
+    assert (copied == 0).any()
+    assert (copied == sp.n).any() == big
+    assert ((copied > 0) & (copied < sp.n)).any() == (not big or
+                                                      not sp.fixed)
+    bad = (6, 7, 8, 9, 10) if sp.kk else (7, 9, 10)
+    for e in bad:
         assert not p1[e].float().any() and not p2[e].float().any()
 
 
 def test_copies_cover_in_map_positions():
-    """The producer lanes' bulk copies, over the stages of an edge, copy
-    exactly the in-map positions of both windows, each once, into the stage
-    slot of their position."""
+    """For each kernel on the ring, the producer lanes' bulk copies, over
+    the stages of an edge, copy exactly the in-map positions of both
+    windows, each once, into the stage slot of their (rolled) position."""
     rng = np.random.RandomState(3)
     H1, W1, H2, W2 = 17, 29, 5, 7
-    for _ in range(200):
-        base = (rng.randint(-14, H1 + 2), rng.randint(-30, W1 + 2),
-                rng.randint(-12, H2 + 2), rng.randint(-18, W2 + 2))
-        seen = []
-        for c in range((N1 + N2) // cf.RING_ROWS):
-            for q, y, x, n, l2 in _stage_copies(c, base, H1, W1, H2, W2):
-                assert c * cf.RING_ROWS <= q and \
-                    q + n <= (c + 1) * cf.RING_ROWS
-                seen += [(q + i, y, x + i, l2) for i in range(n)]
-        want = []
-        for q in range(N1 + N2):
-            l2 = q >= N1
-            qq, wx = (q - N1, cf.WX2) if l2 else (q, cf.WX)
-            y = (base[2] if l2 else base[0]) + qq // wx
-            x = (base[3] if l2 else base[1]) + qq % wx
-            if 0 <= y < (H2 if l2 else H1) and 0 <= x < (W2 if l2 else W1):
-                want.append((q, y, x, l2))
-        assert seen == want
+    for sp in SPECS.values():
+        for _ in range(200):
+            base = (rng.randint(-14, H1 + 2), rng.randint(-30, W1 + 2),
+                    rng.randint(-12, H2 + 2), rng.randint(-18, W2 + 2))
+            sh = ((rng.randint(sp.n1), rng.randint(sp.n2)) if sp.roll else
+                  (0, 0))
+            seen = []
+            for c in range(sp.n // sp.rows):
+                for q, y, x, n, l2 in _stage_copies(sp, c, base, sh, H1, W1,
+                                                    H2, W2):
+                    assert c * sp.rows <= q and \
+                        q + n <= (c + 1) * sp.rows
+                    seen += [(q + i, y, x + i, l2) for i in range(n)]
+            want = []
+            for s in range(sp.n):                  # ring slot s holds ...
+                l2 = s >= sp.n1
+                off, n = (sp.n1, sp.n2) if l2 else (0, sp.n1)
+                q = (s - off + sh[l2]) % n         # ... window position q
+                wx = sp.wx2 if l2 else sp.wx1
+                y = (base[2] if l2 else base[0]) + q // wx
+                x = (base[3] if l2 else base[1]) + q % wx
+                if 0 <= y < (H2 if l2 else H1) and \
+                        0 <= x < (W2 if l2 else W1):
+                    want.append((s, y, x, l2))
+            assert (sorted(seen) if sp.roll else seen) == want
 
 
 def _source_consts():
@@ -223,6 +358,22 @@ def _source_consts():
                      r'kStages = (\d+), kRows = (\d+), kWarps = (\d+), '
                      r'kBlocksPerSm = (\d+);', src)
     return consts, tuple(int(v) for v in ring.groups())
+
+
+def _probe_source_rings():
+    """{key: ((stages, rows, warps, blocks per SM), which)} of each
+    ProbeRing<P> of csrc/corr_probes.cu, `which` being P's value in the
+    RingProbe enum (the shape query's argument)."""
+    src = PROBES_SRC.read_text()
+    enum = re.search(r'enum RingProbe \{([^}]*)\}', src).group(1)
+    which = {k: int(v) for k, v in re.findall(r'(k\w+) = (\d+)', enum)}
+    rings = {}
+    for p, key, *vals in re.findall(
+            r'struct ProbeRing<(k\w+)> \{  // (\w+)\s*static constexpr int '
+            r'kStages = (\d+), kRows = (\d+), kWarps = (\d+), '
+            r'kBlocksPerSm = (\d+);', src):
+        rings[key] = (tuple(int(v) for v in vals), which[p])
+    return rings
 
 
 def test_constants_match_kernel_source():
@@ -239,10 +390,29 @@ def test_constants_match_kernel_source():
     assert (smem + 1024) * blocks <= 228 * 1024
 
 
+@pytest.mark.parametrize('key', ['planes_roll', 'planes_w12x16',
+                                 'planes_fixedw'])
+def test_probe_ring_constants_match_source(key):
+    """Each probe's ring in csrc/corr_probes.cu is the one ops/corr_probes
+    names, its shape-query number the wrapper's, its stages hold whole
+    tile pairs of whole edges, and its blocks fit an SM."""
+    ring, which = _probe_source_rings()[key]
+    assert ring == cp.PLANES_RING[key]
+    assert which == cp._RING_WHICH[key]
+    sp = SPECS[key]
+    stages, rows, warps, blocks = ring
+    assert sp.n % rows == 0 and rows % 16 == 0 and sp.n1 % 16 == 0
+    slot = P2 * C * 2 + (32 if sp.roll else 16)
+    smem = stages * rows * C * 2 + 2 * slot + 8 * (2 * stages + 4)
+    assert smem == cp.ring_smem(key)
+    assert (smem + 1024) * blocks <= 228 * 1024
+
+
 def ring_schedule(E, grid, chunks):
-    """corr_planes_ring's order of work (csrc/corr_fused.cu): block b takes
-    edges b, b + grid, ...; per edge one g-slot fill, then `chunks` stage
-    fills. Returns, per block, the list of its edges."""
+    """corr_planes_ring's and probe_planes_ring's order of work
+    (csrc/planes_ring.cuh): block b takes edges b, b + grid, ...; per edge
+    one g-slot fill, then `chunks` stage fills. Returns, per block, the
+    list of its edges."""
     return [list(range(b, E, grid)) for b in range(min(grid, E))]
 
 
@@ -340,12 +510,16 @@ def _run_block(edges, chunks, stages, warps, rng):
     return reads
 
 
-# (E, grid, chunks, stages, warps): the kernel's own ring (7 chunks of 64
-# positions per edge, 3 stages, 4 consumer warps; 528 blocks on 132 SMs)
-# around its grid, then other shapes
+# (E, grid, chunks, stages, warps): K2's ring (7 chunks of 64 positions
+# per edge, 3 stages, 4 consumer warps; 528 blocks on 132 SMs) around its
+# grid, K5's (7 chunks, 3 stages, 2 warps) and K8's (6 chunks, whole laps of
+# the ring; 3 stages, 2 warps), then other shapes
 @pytest.mark.parametrize('E,grid,chunks,stages,warps', [
     (1, 528, 7, 3, 4), (527, 528, 7, 3, 4), (529, 528, 7, 3, 4),
     (1200, 528, 7, 3, 4), (5, 2, 7, 3, 4), (9, 1, 7, 3, 4),
+    (529, 528, 7, 3, 2), (9, 1, 7, 3, 2),
+    (1, 528, 6, 3, 2), (529, 528, 6, 3, 2), (1100, 528, 6, 3, 2),
+    (9, 1, 6, 3, 2), (7, 2, 6, 2, 4), (8, 3, 6, 4, 4),
     (7, 3, 14, 8, 4), (6, 2, 2, 2, 3), (4, 1, 1, 3, 2), (5, 2, 4, 1, 1)])
 def test_ring_schedule_reads_each_stage_once(E, grid, chunks, stages,
                                              warps):

@@ -7,9 +7,9 @@ Bounds: bf16 outputs one bf16 rounding apart, |kernel - plain| <= 2^-7
 |plain| + 1e-5 max|plain| (both sum the same f32 products of bf16 values in
 another order, then round); f32 outputs (dots, first49) <= 1e-5
 max|plain| (the sum order only). Window bases reach outside the maps, so
-the zero fill is checked too. K6's persistent dots kernel is also run at
-edge counts around its grid, on windows of other lengths and on a side
-stream."""
+the zero fill is checked too. The persistent kernels (K6 dots, and K5 /
+K8 on K2's ring) are also run at edge counts around their grids, on a side
+stream and over NaN-filled memory; K6 dots on windows of other lengths."""
 import numpy as np
 import pytest
 import torch
@@ -118,6 +118,92 @@ def test_planes_w12x16(cuda, fixed):
     else:
         got = _counted('planes_w12x16', lambda: cp.planes_w12x16(*args))
         _close(got, cp.planes_w12x16_plain(*args))
+
+
+RING_KEYS = ('planes_roll', 'planes_w12x16', 'planes_fixedw')
+
+
+def _ring_calls(key, args, seed):
+    """(kernel, plain) of the ring instantiation `key` on _maps' args; K5's
+    rolls zero, odd, negative, at and past the level's positions and at
+    the int32 extremes."""
+    if key == 'planes_fixedw':
+        return (lambda: cp.planes_fixedw(*args[:4]),
+                lambda: cp.planes_fixedw_plain(*args[:4]))
+    if key == 'planes_w12x16':
+        return (lambda: cp.planes_w12x16(*args),
+                lambda: cp.planes_w12x16_plain(*args))
+    E, dev = args[0].shape[0], args[0].device
+    rng = np.random.RandomState(seed)
+    sh = []
+    for n in (cp.WY * cp.WX, cp.WY2 * cp.WX2):
+        v = rng.randint(-3 * n, 3 * n, E)
+        ext = [0, 1, -1, -7, n, n + 3, 2 * n - 1, -n, 2 ** 31 - 1, -2 ** 31]
+        v[:len(ext)] = ext[:E]
+        sh.append(torch.from_numpy(v.astype(np.int32)).to(dev))
+    return (lambda: cp.planes_roll(*args, *sh),
+            lambda: cp.planes_roll_plain(*args, *sh))
+
+
+@pytest.mark.parametrize('key', RING_KEYS)
+def test_ring_probe_edge_counts(cuda, key):
+    """E = 1, one below and one above the persistent grid, and 4,099, with
+    windows across every border and a missing frame (jj = F)."""
+    grid = cp.planes_ring_shape(key, 1 << 20)['grid']
+    for E in (1, grid - 1, grid + 1, 4099):
+        args = _maps(cuda, E=E, seed=E)
+        fn, plain = _ring_calls(key, args, E)
+        _close(_counted(key, fn), plain())
+
+
+@pytest.mark.parametrize('key', RING_KEYS)
+def test_ring_probe_writes_every_entry_and_repeats(cuda, key):
+    """Outputs laid over NaN-filled memory come out finite (every entry
+    written, zeros outside the map and for the missing frame), and a second
+    call gives the same bits."""
+    args = _maps(cuda, E=2048, seed=11)
+    fn, plain = _ring_calls(key, args, 11)
+    outs = []
+    for _ in range(2):
+        n1 = 288 if key == 'planes_roll' else 192
+        n2 = 160 if key == 'planes_roll' else 192
+        for n in (n1, n2):
+            torch.full((2048, P2, n), float('nan'), dtype=torch.bfloat16,
+                       device=cuda)
+        got = _counted(key, fn)
+        assert all(bool(torch.isfinite(o).all()) for o in got)
+        outs.append([o.clone() for o in got])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    _close(outs[0], plain())
+
+
+@pytest.mark.parametrize('key', RING_KEYS)
+def test_ring_probe_on_a_side_stream(cuda, key):
+    args = _maps(cuda, E=999, seed=12)
+    fn, plain = _ring_calls(key, args, 12)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        got = fn()
+    torch.cuda.current_stream().wait_stream(s)
+    _close(got, plain())
+
+
+@pytest.mark.parametrize('key', RING_KEYS)
+def test_ring_probe_launch_shape(cuda, key):
+    """K2's ring shape for each probe: one producer warp beside the
+    consumers, the ring of PLANES_RING and its slots and barriers in
+    dynamic shared memory, the grid min(E, blocks per SM x SMs)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    stages, rows, warps, blocks = cp.PLANES_RING[key]
+    sh = cp.planes_ring_shape(key, 1)
+    assert (sh['stages'], sh['rows'], sh['warps']) == (stages, rows, warps)
+    assert sh['threads'] == 32 * (warps + 1)
+    assert sh['smem'] == cp.ring_smem(key)
+    assert 1 <= sh['resident'] <= blocks
+    full = sh['resident'] * sms
+    for E in (1, 7, full - 1, full, full + 1, 49152, 49152 + 13):
+        assert cp.planes_ring_shape(key, E)['grid'] == min(E, full), E
 
 
 def _dots_inputs(dev, E, W=384, seed=6):

@@ -12,8 +12,9 @@ Phases (any failure raises, so the exit code is non-zero):
      spill lines of each kernel, K1's threads, shared memory and blocks
      per SM for bf16 and f32 maps, and the persistent launch shapes (grid,
      threads, dynamic shared memory, registers, blocks per SM and ring) of
-     K2 for bf16 maps, of K5 and K8 (both) on the planes ring and of K6
-     dots;
+     K2 for bf16 maps, of K5, K7 and K8 (both each) on the planes ring, of
+     K4's two tile kernels (with their tiles' map rows, consumer warps and
+     edges per item at most) and of K6 dots;
   3. kernels vs plain, at the main paths' shapes (E = 49,152 edges, 36
      frames of 120x160 and 30x40 bf16 maps): K1 (plus the fast.yaml row
      layout, M = 48; the pixels per branch and level of its union-box rule,
@@ -49,8 +50,12 @@ Phases (any failure raises, so the exit code is non-zero):
      plain version, its bound and (K6 dots) one torch.bmm, timed in turns
      with the kernel (kernel / library ratio printed); K2 against K4 on
      micro_fused_v2's inputs (ratio printed); device times in turns of K5
-     against K4 and of K8 w12x16 against K8 fixedw, with the rates at
-     which they copy window rows from L2.
+     against K4, of K7 STREAMS=1 against STREAMS=0 and of K8 w12x16
+     against K8 fixedw, with the bytes they copy from L2 per call and
+     their rates; K4's work items and mean edges per item, read back from
+     one call of its chain (corr_probes.pair_work) and checked: every
+     edge in one item of at most PAIR_CAP, items in bin order, tiles
+     within their bounds, at most 1.0 GB of them per call.
 The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
@@ -548,6 +553,28 @@ def small_cpu_vs_cuda(dev):
               f'launches {launches})', flush=True)
 
 
+def check_pair_items(work, E):
+    """K4's work items as its chain made them (corr_probes.pair_work), per
+    level: each of 1 .. PAIR_CAP edges, together every edge once, in
+    consecutive runs of the sorted edges, by bin; a tile of at most its
+    rows x the window's columns, no tile only for the last bin (the edges
+    that write zeros)."""
+    from dpvo_torch.ops import corr_probes as cp
+    for level, items in zip((1, 2), work):
+        first, n, b, pos = items.T
+        wx = cp.WX if level == 1 else cp.WX2
+        where = f'K4 level {level} items'
+        check(len(items) > 0 and int(first[0]) == 0 and
+              bool((first[1:] == first[:-1] + n[:-1]).all()) and
+              int(n.sum()) == E, f'{where}: do not cover the edges once')
+        check(bool(((n >= 1) & (n <= cp.PAIR_CAP)).all()),
+              f'{where}: an item holds 0 or more than {cp.PAIR_CAP} edges')
+        check(bool((b[1:] >= b[:-1]).all()), f'{where}: not in bin order')
+        check(bool(((pos >= 0) & (pos <= cp.PAIR_TILE[level][0] * wx)).all())
+              and bool((b[pos == 0] == b[-1]).all()),
+              f'{where}: a tile off its bounds')
+
+
 def probes():
     """Phase 8: the four probe entry points at their scripts' sizes, the
     launch counts set to 0 just before each and read just after. Each
@@ -569,6 +596,24 @@ def probes():
             k4 = res['variants']['planes_pair']['ms']
             print(f'  K2 on K4\'s inputs: {k2!r} ms, K4 {k4!r} ms, K2 / K4 '
                   f'{k2 / k4!r}', flush=True)
+            st, pr = res['pair_stats'], res['paired'][
+                'planes_roll / planes_pair']
+            read = st['tile_bytes'] + st['g_bytes']
+            print(f'  K4 from L2 per call: {st["items"]} work items, '
+                  f'{st["edges_per_item"]!r} edges per item; tiles '
+                  f'{st["tile_bytes"] / 1e9!r} GB + g rows '
+                  f'{st["g_bytes"] / 1e9!r} GB = {read / 1e9!r} GB, '
+                  f'{read / k4 / 1e9!r} TB/s alone, '
+                  f'{pr["other_tb_per_s"]!r} TB/s in turns', flush=True)
+            check(st['tile_bytes'] <= 1.0e9,
+                  f'K4 stages {st["tile_bytes"]} B of tiles per call')
+            check_pair_items(res['pair_work'], res['E'])
+        if mod is micro_onepass_dma:
+            pr = res['paired']['planes_first49_streams / planes_first49']
+            print(f'  K7 from L2 per call: {res["copied"] / 1e9!r} GB, '
+                  f'{pr["other_tb_per_s"]!r} TB/s (STREAMS=0) and '
+                  f'{pr["tb_per_s"]!r} TB/s (STREAMS=1) in turns; STREAMS=1 '
+                  f'/ STREAMS=0 {pr["ratio"]!r}', flush=True)
         for row in res['variants'].values():
             k = row['kernel']
             check(counts[k] > 0, f'{row["name"]}: kernel never launched')
@@ -644,6 +689,20 @@ def main():
               f'dynamic shared memory, {sh["regs"]} registers, '
               f'{sh["resident"]} blocks per SM; ring of {sh["stages"]} stages '
               f'x {sh["rows"]} window positions, {sh["warps"]} consumer warps')
+    for level in (1, 2):
+        sh = corr_probes.pair_shape(level, 43008)
+        rows, warps, _, unit = corr_probes.PAIR_TILE[level]
+        check(sh['smem'] == corr_probes.pair_smem(level) and
+              (sh['rows'], sh['warps'], sh['cap'], sh['unit']) ==
+              (rows, warps, corr_probes.PAIR_CAP, unit),
+              f'K4 level {level} launch shape {sh}')
+        print(f'  planes_pair (K4) level {level} tiles at E = 43,008: grid '
+              f'{sh["grid"]}, {sh["threads"]} threads, {sh["smem"]} B of '
+              f'dynamic shared memory, {sh["regs"]} registers, '
+              f'{sh["resident"]} blocks per SM; tiles of up to {sh["rows"]} '
+              f'map rows, {sh["warps"]} consumer warps, units of '
+              f'{sh["unit"]} tile pairs, up to {sh["cap"]} edges per work '
+              f'item')
     for key in ('dots', 'dots2'):
         sh = corr_probes.dots_shape(key, 49152)
         print(f'  K6 {key} at E = 49,152: grid {sh["grid"]}, '

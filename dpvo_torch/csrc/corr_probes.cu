@@ -7,13 +7,16 @@
 // plain PyTorch version of each instantiation).
 //
 // The TPU kernels they replace, all Pallas calls in the probe scripts:
-//   probe_planes_pair       scripts/micro_fused_v2.py:_plane_kernel_k2 (K4)
+//   probe_pair_tiles<1>, <2> (with the binning kernels pair_bin_*)
+//                           scripts/micro_fused_v2.py:_plane_kernel_k2 (K4)
 //   probe_planes_ring<kRollK5>
 //                           scripts/micro_fused_v2.py:_plane_kernel_roll (K5)
 //   probe_dots              scripts/micro_corr_floor.py:dot_kernel,
 //                           dot_kernel2 (K6)
 //   probe_slab              scripts/micro_corr_floor.py:fused_kernel (K6)
-//   probe_planes            scripts/micro_onepass_dma.py:kernel (K7)
+//   probe_planes_ring<kFirst49>, <kFirst49S>
+//                           scripts/micro_onepass_dma.py:kernel (K7,
+//                           STREAMS=0 / 1)
 //   probe_planes_ring<kW12x16>, <kFixedW>
 //                           scripts/micro_kernel_variants.py:make_kernel
 //                           (K8; modes full / twodots / rank3 in one
@@ -53,23 +56,30 @@
 // measurement), nor on the copy path (bulk copies, cp.async with L2 fetch
 // hints and 2-D tensor-map copies with L2 promotion measured alike).
 //
-// probe_planes_ring (K5, K8) is K2's kernel for bf16 maps with other
+// probe_planes_ring (K5, K7, K8) is K2's kernel for bf16 maps with other
 // windows and epilogues: the body planes_ring.cuh:ring_body, one spec per
-// instantiation (ProbeSpec), its ring fixed at compile time (ProbeRing). A
-// persistent grid; a producer warp, lane r copying window row r's in-map
-// run into a ring of stages with cp.async.bulk on mbarriers (K8's 24 rows
-// of 16 positions, 4 KB each; K5's 22 rows of K2); consumer warps on
-// mma.sync storing tile pairs from registers as whole 32-byte sectors. K5's
-// roll is done by the copies: ring slot c of a level receives window
-// position (c + sh) mod N, so its products come out in output order and its
-// stores are K2's. Each edge still reads its own windows from L2 (K5 114,688
-// B, K8 98,304 B per edge), 4-5x the bytes bound; what is below that floor
-// is sharing a target frame's rows across its edges (ROADMAP queue 2).
+// instantiation (ProbeSpec, First49Spec), its ring fixed at compile time
+// (ProbeRing). A persistent grid; a producer warp, lane r copying window
+// row r's in-map run into a ring of stages with cp.async.bulk on mbarriers
+// (K8's 24 rows of 16 positions, 4 KB each; K5's 22 rows of K2; K7's 7 rows
+// of the first 64 positions of each level); consumer warps on mma.sync
+// storing tile pairs from registers as whole 32-byte sectors (K7: its
+// first 49 f32 columns). K5's roll is done by the copies: ring slot c of a
+// level receives window position (c + sh) mod N, so its products come out
+// in output order and its stores are K2's. K7's streams are read by the
+// producer's idle lanes while the edge's copies are in flight. Each edge
+// still reads its own windows from L2 (K5 114,688 B, K8 98,304 B, K7
+// 32,768 B per edge), 4-5x the bytes bound.
 //
-// The other probes: the dots run on the tensor cores (mma.sync m16n8k16,
-// bf16 in, f32 accumulate; the building blocks are in mma_bf16.cuh,
-// shared with K1's bf16 kernel), so the arithmetic stays far below the
-// memory time, and every byte goes through a coalesced path:
+// probe_pair_tiles (K4) is the step below that floor: the edges are binned
+// by target tile on the device, and each tile's map rows are staged once
+// per work item of up to 64 edges (the note at its definition).
+//
+// probe_slab (K6 fused_kernel) runs on the tensor cores too (mma.sync
+// m16n8k16, bf16 in, f32 accumulate; the building blocks are in
+// mma_bf16.cuh, shared with K1's bf16 kernel), one block per edge, so the
+// arithmetic stays far below the memory time, and every byte goes through
+// a coalesced path:
 //   * the 9 g rows of an edge are staged once in shared memory and held by
 //     every warp as the A operand (rows 9-15 zero) in 32 registers;
 //   * the B operand, 8 window positions x 16 channels, is read straight
@@ -77,15 +87,13 @@
 //     channels) of its position's row, and the channels are permuted
 //     identically in A and B so that one 16-byte load feeds two k-steps;
 //   * the 9 x N f32 result of an edge is staged in shared memory and the
-//     epilogue (bf16 rounding, first-49 columns) writes it out
-//     contiguously.
+//     epilogue (bf16 rounding) writes it out contiguously.
 // Dropped, as TPU layout: the padded slabs and the phase-shifted copies of
 // the maps (positions outside the map read as zero, which is what the
 // padding held; a phase is bx + 4 * ph), the bit-packed SMEM scalar streams
 // (plain int32 arrays), the 32-edge sequential grid with its target-slab DMA
-// (one block per edge, all in parallel; a persistent grid for probe_dots
-// and probe_planes_ring),
-// and K4's off-diagonal products (each edge is dotted with its own window
+// (one block per edge for probe_slab; persistent grids for the others), and
+// K4's off-diagonal products (each edge is dotted with its own window
 // only).
 //
 // Layouts (all contiguous): g (E, 9, 128) bf16, one row block per edge;
@@ -98,6 +106,10 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <numeric>
+#include <type_traits>
+
 #include "mma_bf16.cuh"
 #include "planes_ring.cuh"
 #include "ring.cuh"
@@ -108,7 +120,7 @@ using namespace corr_mma;   // GFrag, load_gfrag, tile_dot, stage_tile, ...
 using namespace corr_ring;  // mbarriers, bulk copies
 
 constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;   // one edge per 128 threads
+constexpr int kThreads = 32 * kWarps;   // probe_slab: one edge per block
 constexpr int kFirst = 49;              // K7 keeps 49 columns per level
 
 // A window of wx columns at (by, bx) of one frame; position q is row q / wx,
@@ -123,36 +135,6 @@ struct Window {
                : nullptr;
   }
 };
-
-__device__ __forceinline__ Window edge_window(const bf16* fmap, int j, int F,
-                                              int H, int W, int by, int bx,
-                                              int wx) {
-  const bf16* frame =
-      (j >= 0 && j < F) ? fmap + static_cast<size_t>(j) * H * W * kC : nullptr;
-  return Window{frame, H, W, by, bx, wx};
-}
-
-// Tiles [0, T1) of level 1 and [0, T2) of level 2, dealt round-robin to the
-// warps; each level's f32 products land in its stage ([9][8 * T]).
-template <int T1, int T2>
-__device__ __forceinline__ void two_level_tiles(const GFrag& a,
-                                                const Window& w1,
-                                                const Window& w2, float* st1,
-                                                float* st2, int warp,
-                                                int nwarps) {
-  const int grp = (threadIdx.x & 31) >> 2;
-  for (int tile = warp; tile < T1 + T2; tile += nwarps) {
-    float d[4];
-    if (tile < T1) {
-      tile_dot(a, w1(tile * 8 + grp), d);
-      stage_tile(d, st1, 8 * T1, tile * 8);
-    } else {
-      const int tl = tile - T1;
-      tile_dot(a, w2(tl * 8 + grp), d);
-      stage_tile(d, st2, 8 * T2, tl * 8);
-    }
-  }
-}
 
 // n (even) bf16 values val(0 .. n-1) to dst, two per 4-byte store
 template <class Val>
@@ -175,110 +157,15 @@ struct PlaneArgs {
   int E, F, H1, W1, H2, W2;
 };
 
-// K7's per-step input streams: the block's 9 rows of s1, fr1, s2, fr2 and
-// its share of the S1 / S2 blocks (all of them read once over the grid),
-// folded by xor into sink[e]. The planes never depend on them; the store
-// keeps the loads in the compiled kernel. Warp 0 only.
-__device__ void read_streams(const PlaneArgs& p, int e) {
-  const int lane = threadIdx.x;
-  unsigned x = 0;
-  if (lane < kP2) {
-    const size_t r = static_cast<size_t>(e) * kP2 + lane;
-    const float2 f1 = reinterpret_cast<const float2*>(p.fr1)[r];
-    const float2 f2 = reinterpret_cast<const float2*>(p.fr2)[r];
-    x = static_cast<unsigned>(p.s1[r]) ^ static_cast<unsigned>(p.s2[r]) ^
-        __float_as_uint(f1.x) ^ __float_as_uint(f1.y) ^
-        __float_as_uint(f2.x) ^ __float_as_uint(f2.y);
-  }
-  const int stride = gridDim.x * 32;
-  for (int i = e * 32 + lane; i < p.nS1; i += stride)
-    x ^= __float_as_uint(p.S1[i]);
-  for (int i = e * 32 + lane; i < p.nS2; i += stride)
-    x ^= __float_as_uint(p.S2[i]);
-  x = __reduce_xor_sync(0xffffffffu, x);
-  if (lane == 0) p.sink[e] = x;
-}
-
-// K4: two edges per block, 4 warps each. The 18 g rows of the pair are
-// staged together; each edge is dotted with its own 12 x 24 / 10 x 16
-// windows only. Out: plane1 (E, 9, 288), plane2 (E, 9, 160) bf16.
-constexpr int kPairN1 = 12 * 24, kPairN2 = 10 * 16;
-
-__global__ void __launch_bounds__(2 * kThreads)
-probe_planes_pair(const PlaneArgs p) {
-  __shared__ uint4 s_g[2][kP2 * kRowU4];
-  __shared__ float s_p1[2][kP2 * kPairN1];
-  __shared__ float s_p2[2][kP2 * kPairN2];
-  const int half = threadIdx.x / kThreads;
-  const int tid = threadIdx.x % kThreads;
-  const int e = 2 * blockIdx.x + half;
-  const bool live = e < p.E;
-  if (live)
-    stage_g(p.g + static_cast<size_t>(e) * kP2 * kC, s_g[half], tid,
-            kThreads);
-  __syncthreads();
-  if (live) {
-    const GFrag a = load_gfrag(s_g[half]);
-    const int j = p.jj[e];
-    const Window w1 = edge_window(p.fmap1, j, p.F, p.H1, p.W1, p.by1[e],
-                                  p.bx1[e], 24);
-    const Window w2 = edge_window(p.fmap2, j, p.F, p.H2, p.W2, p.by2[e],
-                                  p.bx2[e], 16);
-    two_level_tiles<kPairN1 / 8, kPairN2 / 8>(a, w1, w2, s_p1[half],
-                                              s_p2[half], tid / 32, kWarps);
-  }
-  __syncthreads();
-  if (live) {
-    const float* st1 = s_p1[half];
-    const float* st2 = s_p2[half];
-    store_bf16(static_cast<bf16*>(p.out1) +
-                   static_cast<size_t>(e) * kP2 * kPairN1,
-               kP2 * kPairN1, tid, kThreads, [&](int i) { return st1[i]; });
-    store_bf16(static_cast<bf16*>(p.out2) +
-                   static_cast<size_t>(e) * kP2 * kPairN2,
-               kP2 * kPairN2, tid, kThreads, [&](int i) { return st2[i]; });
-  }
-}
-
-// K7: one edge per block, K2's windows (12 x 24 at level 1, 10 x 16 at
-// level 2); the first 49 columns of each flattened f32 plane row, as
-// (E * 9, 49) per level (only those positions are computed). kStreams also
-// reads the probe's per-step input streams (read_streams).
-template <bool kStreams>
-__global__ void __launch_bounds__(kThreads) probe_planes(const PlaneArgs p) {
-  constexpr int T = (kFirst + 7) / 8;
-  __shared__ uint4 s_g[kP2 * kRowU4];
-  __shared__ float s_p1[kP2 * 8 * T];
-  __shared__ float s_p2[kP2 * 8 * T];
-  const int e = blockIdx.x;
-  const int tid = threadIdx.x;
-  stage_g(p.g + static_cast<size_t>(e) * kP2 * kC, s_g, tid, kThreads);
-  if constexpr (kStreams) {
-    if (tid < 32) read_streams(p, e);
-  }
-  __syncthreads();
-  const GFrag a = load_gfrag(s_g);
-  const int j = p.jj[e];
-  const Window w1 =
-      edge_window(p.fmap1, j, p.F, p.H1, p.W1, p.by1[e], p.bx1[e], 24);
-  const Window w2 =
-      edge_window(p.fmap2, j, p.F, p.H2, p.W2, p.by2[e], p.bx2[e], 16);
-  two_level_tiles<T, T>(a, w1, w2, s_p1, s_p2, tid / 32, kWarps);
-  __syncthreads();
-
-  const size_t base = static_cast<size_t>(e) * kP2 * kFirst;
-  float* o1 = static_cast<float*>(p.out1) + base;
-  float* o2 = static_cast<float*>(p.out2) + base;
-  for (int i = tid; i < kP2 * kFirst; i += kThreads) {
-    const int r = i / kFirst, c = i % kFirst;
-    o1[i] = s_p1[r * 8 * T + c];
-    o2[i] = s_p2[r * 8 * T + c];
-  }
-}
-
-// K5 and K8 on the ring of bulk copies (planes_ring.cuh:ring_body, K2's
-// design): one spec per instantiation.
-enum RingProbe { kRollK5 = 0, kW12x16 = 1, kFixedW = 2 };
+// K5, K7 and K8 on the ring of bulk copies (planes_ring.cuh:ring_body,
+// K2's design): one spec per instantiation.
+enum RingProbe {
+  kRollK5 = 0,
+  kW12x16 = 1,
+  kFixedW = 2,
+  kFirst49 = 3,
+  kFirst49S = 4
+};
 
 // The ring of each: kStages stages of kRows window positions, kWarps
 // consumer warps (+ 1 producer), and the blocks asked for on each SM (at
@@ -298,17 +185,27 @@ template <>
 struct ProbeRing<kFixedW> {  // planes_fixedw
   static constexpr int kStages = 3, kRows = 64, kWarps = 2, kBlocksPerSm = 4;
 };
+template <>
+struct ProbeRing<kFirst49> {  // planes_first49
+  static constexpr int kStages = 2, kRows = 128, kWarps = 4, kBlocksPerSm = 3;
+};
+template <>
+struct ProbeRing<kFirst49S> {  // planes_first49_streams
+  static constexpr int kStages = 2, kRows = 128, kWarps = 4, kBlocksPerSm = 3;
+};
 
 // K5: K2's windows, rolled by sh1 / sh2 (each taken modulo its level's
 // positions; it may be negative or past them). K8: 12 x 16 windows at both
-// levels, at (by, bx) or, for fixedw, at (0, 0) (by*, bx* unread). The g
-// rows are g[e]; an edge whose frame jj is out of range is all zero.
+// levels, at (by, bx) or, for fixedw, at (0, 0) (by*, bx* unread). K7:
+// K2's windows (First49Spec). The g rows are g[e]; an edge whose frame jj
+// is out of range is all zero.
 template <int P>
 struct ProbeSpec {
   using Ring = ProbeRing<P>;
   static constexpr bool kRoll = P == kRollK5, kFixed = P == kFixedW;
-  static constexpr int kWY1 = 12, kWX1 = kRoll ? 24 : 16;
-  static constexpr int kWY2 = kRoll ? 10 : 12, kWX2 = 16;
+  static constexpr bool kK2Windows = kRoll || P == kFirst49 || P == kFirst49S;
+  static constexpr int kWY1 = 12, kWX1 = kK2Windows ? 24 : 16;
+  static constexpr int kWY2 = kK2Windows ? 10 : 12, kWX2 = 16;
   using Args = PlaneArgs;
   struct Edge {
     int j;
@@ -338,11 +235,85 @@ struct ProbeSpec {
   }
 };
 
+// K7: the first 49 columns of each level's flattened plane row, f32, as
+// (E * 9, 49) per level (row p of edge e at (e * 9 + p) * 49). The ring
+// computes whole tile pairs, so the first 64 positions of each level: its 7
+// window rows (level-1 rows 0-1 and 16 positions of row 2, level-2 rows
+// 0-3), 2 stages of 64 per edge. kFirst49S also reads the probe's per-step
+// input streams (STREAMS=1) with the producer's idle lanes: the edge's 9
+// rows of s1, s2 (int32), fr1, fr2 (f32 pairs), and elements e * 32 ..
+// e * 32 + 31 of S1 and S2 (and their repeats at strides of E * 32, so
+// that the grid reads each element once), folded by xor into sink[e].
 template <int P>
-__global__ void __launch_bounds__(planes_ring::Geom<ProbeSpec<P>>::kThreads,
+struct First49Spec : ProbeSpec<P> {
+  using Args = PlaneArgs;
+  static constexpr int kPos1 = 64, kPos2 = 64, kKeep = kFirst;
+  static constexpr bool kStreams = P == kFirst49S;
+  // the producer's lanes past the window rows: 32 - 3 - 4 = 25
+  static constexpr int kIdle =
+      32 - (kPos1 + ProbeSpec<P>::kWX1 - 1) / ProbeSpec<P>::kWX1 -
+      (kPos2 + ProbeSpec<P>::kWX2 - 1) / ProbeSpec<P>::kWX2;
+  static_assert(kIdle >= kP2 && 2 * kIdle >= 32, "two S elements a lane");
+  struct Streams {
+    unsigned w[10];
+  };
+  // idle lane k (0 .. kIdle - 1) of the producer: rows e * 9 + k (k < 9),
+  // and the S1 / S2 elements j = k and k + kIdle (< 32) of the edge
+  static __device__ __forceinline__ Streams streams(const Args& a, int e,
+                                                    int k) {
+    Streams s{};
+    if (k < kP2) {
+      const size_t r = static_cast<size_t>(e) * kP2 + k;
+      const float2 f1 = reinterpret_cast<const float2*>(a.fr1)[r];
+      const float2 f2 = reinterpret_cast<const float2*>(a.fr2)[r];
+      s.w[0] = static_cast<unsigned>(a.s1[r]);
+      s.w[1] = static_cast<unsigned>(a.s2[r]);
+      s.w[2] = __float_as_uint(f1.x);
+      s.w[3] = __float_as_uint(f1.y);
+      s.w[4] = __float_as_uint(f2.x);
+      s.w[5] = __float_as_uint(f2.y);
+    }
+    const size_t stride = static_cast<size_t>(a.E) * 32;
+    int w = 6;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = k + kIdle * h;
+      const size_t i = static_cast<size_t>(e) * 32 + j;
+#pragma unroll
+      for (int m = 0; m < 2; ++m, ++w) {
+        const float* S = m ? a.S2 : a.S1;
+        const size_t n = static_cast<size_t>(m ? a.nS2 : a.nS1);
+        if (j < 32 && i < n) {
+          s.w[w] = __float_as_uint(S[i]);
+          for (size_t i2 = i + stride; i2 < n; i2 += stride)
+            s.w[w] ^= __float_as_uint(S[i2]);
+        }
+      }
+    }
+    return s;
+  }
+  static __device__ __forceinline__ unsigned fold(const Streams& s) {
+    unsigned x = 0;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) x ^= s.w[i];
+    return x;
+  }
+  static __device__ __forceinline__ void sink(const Args& a, int e,
+                                              unsigned x) {
+    a.sink[e] = x;
+  }
+};
+
+// the spec of instantiation P
+template <int P>
+using SpecOf = std::conditional_t<P == kFirst49 || P == kFirst49S,
+                                  First49Spec<P>, ProbeSpec<P>>;
+
+template <int P>
+__global__ void __launch_bounds__(planes_ring::Geom<SpecOf<P>>::kThreads,
                                   ProbeRing<P>::kBlocksPerSm)
 probe_planes_ring(const PlaneArgs p) {
-  planes_ring::ring_body<ProbeSpec<P>>(p);
+  planes_ring::ring_body<SpecOf<P>>(p);
 }
 
 // probe_planes_ring<P> for ring_shape
@@ -351,8 +322,8 @@ struct ProbeRingKernel {
   static const void* fn() {
     return reinterpret_cast<const void*>(probe_planes_ring<P>);
   }
-  static constexpr int kThreads = planes_ring::Geom<ProbeSpec<P>>::kThreads;
-  static constexpr int kSmem = planes_ring::Geom<ProbeSpec<P>>::kSmem;
+  static constexpr int kThreads = planes_ring::Geom<SpecOf<P>>::kThreads;
+  static constexpr int kSmem = planes_ring::Geom<SpecOf<P>>::kSmem;
   static constexpr int kBlocksPerSm = ProbeRing<P>::kBlocksPerSm;
 };
 
@@ -503,6 +474,526 @@ probe_dots(const bf16* __restrict__ g, const bf16* __restrict__ win,
   }
 }
 
+// ---- K4 (planes_pair) as target tiles ----
+//
+// K2's planes with g rows g[e]: per edge its 12 x 24 window at (by1, bx1) of
+// fmap1 and its 10 x 16 window at (by2, bx2) of fmap2, frame jj. A chain
+// of kernels on one stream, every count on the device:
+//   1. pair_bin_count: each edge's bin at each level, (frame, row bin of
+//      by, exact bx), and the bins' counts (atomics). An edge whose frame is
+//      out of range or whose window misses the map goes to the last bin,
+//      whose items write zeros;
+//   2. pair_bin_sums, pair_bin_scan (one block per 1024 bins): the
+//      exclusive scan of the counts, each block adding the sums of the
+//      blocks before it, and the work items: a bin of n edges is
+//      ceil(n / kCap) items of at most kCap edges, so a skewed input still
+//      spreads;
+//   3. pair_bin_scatter: each edge's (id, by) to its bin's next position;
+//   4. probe_pair_tiles<1>, <2>: a persistent grid claims the items with an
+//      atomic counter; per item the producer warp copies the bin's tile
+//      (the in-map part of kRows map rows x the window's columns; lane r
+//      one row, one cp.async.bulk) and streams each edge's g rows into a
+//      ring of slots; the consumer warps take the edges' units of work
+//      (runs of kUnit tile pairs) in turn, load the edge's g rows once per
+//      unit, run its tiles on mma.sync with B read from the tile at the
+//      edge's own rows, and store each lane's two columns of a tile as one
+//      bf16 pair (a tile pair fills the 32-byte sectors).
+// Each map row of a tile is read from L2 once per item instead of once per
+// edge: at micro_fused_v2's sizes ~0.9 GB per call instead of 4.93.
+constexpr int kCap = 64;   // edges per work item at most (two per lane)
+
+// The tile of each level: at most kRows map rows (a row bin of kRows - WY
+// + 1 window bases; a map of at most kRows rows is one bin), kWarps
+// consumer warps (+ 1 producer), the blocks asked for on each SM (at most
+// what fits), and the tile pairs of an edge's unit of work (a warp loads
+// the edge's g rows once per unit). Chosen by a sweep
+// (dpvo_torch/scripts/ring_sweep.py).
+template <int L>
+struct PairTile;
+template <>
+struct PairTile<1> {  // planes_pair level 1
+  static constexpr int kRows = 15, kWarps = 4, kBlocksPerSm = 2, kUnit = 9;
+};
+template <>
+struct PairTile<2> {  // planes_pair level 2
+  static constexpr int kRows = 30, kWarps = 8, kBlocksPerSm = 1, kUnit = 10;
+};
+
+template <int L>
+struct PairLevel {
+  using T = PairTile<L>;
+  static constexpr int kWY = L == 1 ? 12 : 10, kWX = L == 1 ? 24 : 16;
+  static constexpr int kN = kWY * kWX;        // positions per edge
+  static constexpr int kPairs = kN / 16;      // tile pairs per edge
+  static constexpr int kUnits = kPairs / T::kUnit;   // units per edge
+  // the ring of g slots: at least 4, and a multiple of the warps over
+  // gcd(warps, units), so that every use of a slot belongs to the same
+  // warps (edges gi and gi + kGSlots have the same unit owners), each of
+  // which waits for all of its phases in order
+  static constexpr int kGSlots =
+      std::max(4, T::kWarps / std::gcd(T::kWarps, kUnits));
+  static constexpr int kSlotBytes = kGBytes + 16;   // g rows, (edge, by)
+  static constexpr int kTileBytes = T::kRows * kWX * kRowBytes;
+  // dynamic shared memory: the tile, the g slots, the item (int4), the
+  // barriers full, empty, g_full[slots], g_empty[slots]
+  static constexpr int kSmem =
+      kTileBytes + kGSlots * kSlotBytes + 16 + 8 * (2 + 2 * kGSlots);
+  static constexpr int kThreads = 32 * (T::kWarps + 1);
+  static_assert(kWX % 8 == 0 && kN % 16 == 0, "whole tile pairs");
+  static_assert(kPairs % T::kUnit == 0 && kUnits <= T::kWarps &&
+                    kUnits <= 3,
+                "whole units (at most 3), each edge's on distinct warps");
+  static_assert(2 * T::kUnit % (kWX / 8) == 0, "units of whole window rows");
+  static_assert(kGSlots * kUnits % T::kWarps == 0,
+                "a slot's uses have the same owners");
+  static_assert(T::kRows >= kWY && T::kRows <= 32,
+                "a window fits the tile; one producer lane per tile row");
+  static_assert((kSmem + 1024) * T::kBlocksPerSm <= 228 * 1024,
+                "the blocks fit an SM (1 KB reserved per block)");
+};
+
+// One level's binning, in the caller's int32 scratch.
+struct PairBins {
+  int* count;    // [nbins] edges per bin (zeroed before the count)
+  int* off;      // [nbins] first sorted position, then the scatter's cursor
+  int* key;      // [E] each edge's bin
+  int2* rec;     // [E] (edge, by) in bin order
+  int4* items;   // [E] (first sorted position, edges, bin, tile positions)
+  int2* part;    // [nblocks] edges and items of each scan block's bins
+  int* nitems;   // the number of items
+  int* claim;    // the tile kernel's count of claimed items
+  const int *by, *bx;
+  int H, W, WY, WX, TY, NYB, NXB, nbins, nblocks;
+  long long items_at, nitems_at;   // the words of items and nitems
+};
+
+// The row bin TY of a level: a map of at most kRows rows is one bin (every
+// base whose window meets the map), else kRows - WY + 1 bases per bin; bins
+// are (frame, (by + WY - 1) / TY, bx + WX - 1), the last one the edges that
+// write zeros. Returns nbins, or -1 past int32.
+template <int L>
+long long pair_bins_shape(int F, int H, int W, int* TY, int* NYB, int* NXB) {
+  using P = PairLevel<L>;
+  constexpr int R = PairTile<L>::kRows;
+  *TY = H <= R ? H + P::kWY - 1 : R - P::kWY + 1;
+  *NYB = (H + P::kWY - 1 + *TY - 1) / *TY;
+  *NXB = W + P::kWX - 1;
+  const long long n = static_cast<long long>(F) * *NYB * *NXB + 1;
+  return n < (1ll << 31) ? n : -1;
+}
+
+// The tile of bin z (not the zero bin) of a level: frame j, the first
+// window row ty0 and column bx of its bases, and its rows y0 .. y0 + rows
+// - 1 and columns x0 .. x0 + nx - 1 that lie in the map, which the tile
+// kernel copies (rows, nx >= 1: a bin's windows meet the map).
+struct PairRect {
+  int j, ty0, bx, y0, rows, x0, nx;
+};
+
+__device__ __forceinline__ PairRect pair_rect(int z, int WY, int WX, int TY,
+                                              int NYB, int NXB, int H,
+                                              int W) {
+  PairRect t;
+  const int r = z / NXB;
+  t.bx = z - r * NXB - (WX - 1);
+  t.ty0 = (r % NYB) * TY - (WY - 1);
+  t.j = r / NYB;
+  t.y0 = max(t.ty0, 0);
+  t.rows = min(t.ty0 + TY + WY - 1, H) - t.y0;
+  t.x0 = max(t.bx, 0);
+  t.nx = min(t.bx + WX, W) - t.x0;
+  return t;
+}
+
+__device__ __forceinline__ int pair_bin(const PairBins& b, int j, int F,
+                                        int H, int W, int e) {
+  const int by = b.by[e], bx = b.bx[e];
+  if (j < 0 || j >= F || by <= -b.WY || by >= H || bx <= -b.WX || bx >= W)
+    return b.nbins - 1;
+  return (j * b.NYB + (by + b.WY - 1) / b.TY) * b.NXB + bx + b.WX - 1;
+}
+
+__global__ void pair_bin_count(const PairBins b1, const PairBins b2,
+                               const int* __restrict__ jj, int E, int F,
+                               int H1, int W1, int H2, int W2) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < E;
+       e += gridDim.x * blockDim.x) {
+    const int j = jj[e];
+    const int k1 = pair_bin(b1, j, F, H1, W1, e);
+    const int k2 = pair_bin(b2, j, F, H2, W2, e);
+    b1.key[e] = k1;
+    b2.key[e] = k2;
+    atomicAdd(b1.count + k1, 1);
+    atomicAdd(b2.count + k2, 1);
+  }
+}
+
+constexpr int kScanThreads = 1024;
+
+// The block's exclusive scan of v (kScanThreads threads); *total the sum.
+__device__ __forceinline__ int block_excl_scan(int v, int* tmp, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) tmp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = tmp[lane];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += y;
+    }
+    tmp[lane] = w;
+  }
+  __syncthreads();
+  const int out = x - v + (warp ? tmp[warp - 1] : 0);
+  *total = tmp[31];
+  __syncthreads();
+  return out;
+}
+
+// The scan's blocks: kScanThreads bins each, those of level 1 first.
+__device__ __forceinline__ PairBins scan_level(const PairBins& b1,
+                                               const PairBins& b2, int* blk) {
+  const int k = blockIdx.x;
+  *blk = k < b1.nblocks ? k : k - b1.nblocks;
+  return k < b1.nblocks ? b1 : b2;
+}
+
+// per scan block: the edges and items of its bins
+__global__ void __launch_bounds__(kScanThreads)
+pair_bin_sums(const PairBins b1, const PairBins b2) {
+  __shared__ int tmp[32];
+  int blk;
+  const PairBins b = scan_level(b1, b2, &blk);
+  const int i = blk * kScanThreads + threadIdx.x;
+  const int c = i < b.nbins ? b.count[i] : 0;
+  int edges, items;
+  block_excl_scan(c, tmp, &edges);
+  block_excl_scan((c + kCap - 1) / kCap, tmp, &items);
+  if (threadIdx.x == 0) b.part[blk] = make_int2(edges, items);
+}
+
+// per scan block: the sums of the blocks before it, then its bins' first
+// sorted positions and items
+__global__ void __launch_bounds__(kScanThreads)
+pair_bin_scan(const PairBins b1, const PairBins b2) {
+  __shared__ int tmp[32];
+  int blk;
+  const PairBins b = scan_level(b1, b2, &blk);
+  int pe = 0, pi = 0;
+  for (int k = threadIdx.x; k < blk; k += kScanThreads) {
+    const int2 q = b.part[k];
+    pe += q.x;
+    pi += q.y;
+  }
+  int before_edges, before_items, total_edges, total_items;
+  block_excl_scan(pe, tmp, &before_edges);
+  block_excl_scan(pi, tmp, &before_items);
+  const int i = blk * kScanThreads + threadIdx.x;
+  const int c = i < b.nbins ? b.count[i] : 0;
+  const int eo = before_edges + block_excl_scan(c, tmp, &total_edges);
+  int io = before_items +
+           block_excl_scan((c + kCap - 1) / kCap, tmp, &total_items);
+  if (i < b.nbins) b.off[i] = eo;
+  // the positions of the bin's tile (what each of its items copies)
+  int pos = 0;
+  if (c > 0 && i != b.nbins - 1) {
+    const PairRect t =
+        pair_rect(i, b.WY, b.WX, b.TY, b.NYB, b.NXB, b.H, b.W);
+    pos = t.rows * t.nx;
+  }
+  for (int k = 0; k < c; k += kCap)
+    b.items[io++] = make_int4(eo + k, min(kCap, c - k), i, pos);
+  if (threadIdx.x == 0) {
+    if (blk == b.nblocks - 1) *b.nitems = before_items + total_items;
+    if (blk == 0) *b.claim = 0;
+  }
+}
+
+__global__ void pair_bin_scatter(const PairBins b1, const PairBins b2,
+                                 int E) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < E;
+       e += gridDim.x * blockDim.x) {
+    const int p1 = atomicAdd(b1.off + b1.key[e], 1);
+    b1.rec[p1] = make_int2(e, b1.by[e]);
+    const int p2 = atomicAdd(b2.off + b2.key[e], 1);
+    b2.rec[p2] = make_int2(e, b2.by[e]);
+  }
+}
+
+struct PairTileArgs {
+  const bf16 *g, *fmap;
+  bf16* out;
+  const int4* items;
+  const int* nitems;
+  int* claim;
+  const int2* rec;
+  int F, H, W, TY, NYB, NXB, zero;   // zero: the bin that writes zeros
+};
+
+// Unit U of an edge at level L: its tile pairs [U * kUnit, (U + 1) *
+// kUnit), whole window rows of tpr = WX / 8 tiles each, walked row by row
+// with the row's tiles at compile-time columns, so that a tile costs its
+// loads, its mma and two stores (the issue of index, mask and swap
+// arithmetic, not the tensor cores, bounded a first version that computed
+// each tile's row, columns and masks at run time and traded columns by
+// shuffles; PERF.md section 6). tile: this lane's B row in the tile (row
+// grp); srow0: the edge's first window row in the tile; rows: bit wy set
+// where the edge's window row wy lies in the map; cols: bit c set where
+// this lane's window column 2t + c does; orow / orow8: this lane's output
+// words of g rows grp and 8.
+template <int L, int U>
+__device__ __forceinline__ void pair_unit(const GFrag& g, const uint4* tile,
+                                          int srow0, uint32_t rows,
+                                          uint32_t cols, bf16* orow,
+                                          bf16* orow8) {
+  using P = PairLevel<L>;
+  constexpr int WX = P::kWX, tpr = WX / 8, R = P::T::kRows;
+  constexpr int wy0 = 2 * U * P::T::kUnit / tpr;
+  constexpr int wy1 = 2 * (U + 1) * P::T::kUnit / tpr;
+  const bool g0 = (threadIdx.x & 31) < 4;   // grp 0: also g row 8
+  const int sw = (threadIdx.x >> 2) & 1;
+#pragma unroll 2
+  for (int wy = wy0; wy < wy1; ++wy) {
+    const uint4* rb = tile + min(max(srow0 + wy, 0), R - 1) * WX * kRowU4;
+    const uint32_t rc = (rows >> wy) & 1 ? cols : 0u;
+#pragma unroll
+    for (int x = 0; x < tpr; ++x) {
+      uint4 b[kChunks];
+      float d[4];
+      stage_b(rb + 8 * x * kRowU4, sw, b);
+      tile_mma(g, b, d);
+      const bool in0 = (rc >> (8 * x)) & 1, in1 = (rc >> (8 * x + 1)) & 1;
+      const int q = (wy * tpr + x) * 8;
+      *reinterpret_cast<uint32_t*>(orow + q) =
+          planes_ring::pack_bf16(in0 ? d[0] : 0.f, in1 ? d[1] : 0.f);
+      if (g0)
+        *reinterpret_cast<uint32_t*>(orow8 + q) =
+            planes_ring::pack_bf16(in0 ? d[2] : 0.f, in1 ? d[3] : 0.f);
+    }
+  }
+}
+
+// Level L's planes, (E, 9, WY * WX) bf16, item by item (the note above).
+// The item's tile holds map rows y0 .. y0 + rows - 1 (its in-map rows) at
+// smem rows 0 .. rows - 1, columns bx .. bx + WX - 1 at 0 .. WX - 1; stale
+// bytes (rows or columns outside the map, a zero item's tile and g slot)
+// reach only the columns the epilogue writes as zero.
+template <int L>
+__global__ void __launch_bounds__(PairLevel<L>::kThreads,
+                                  PairTile<L>::kBlocksPerSm)
+probe_pair_tiles(const PairTileArgs a) {
+  using P = PairLevel<L>;
+  constexpr int WY = P::kWY, WX = P::kWX, N = P::kN, R = P::T::kRows;
+  constexpr int nw = P::T::kWarps, NG = P::kGSlots, tpr = WX / 8;
+  extern __shared__ __align__(128) uint4 smem[];
+  unsigned char* slots = reinterpret_cast<unsigned char*>(smem) +
+                         P::kTileBytes;
+  int4* s_item = reinterpret_cast<int4*>(slots + NG * P::kSlotBytes);
+  const uint32_t tile0 = smem_u32(smem);
+  const uint32_t slot0 = tile0 + P::kTileBytes;
+  const uint32_t full = slot0 + NG * P::kSlotBytes + 16, empty = full + 8;
+  const uint32_t gfull0 = empty + 8, gempty0 = gfull0 + 8 * NG;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    mbar_init(empty, nw);
+    for (int s = 0; s < NG; ++s) {
+      mbar_init(gfull0 + 8 * s, 1);
+      mbar_init(gempty0 + 8 * s, P::kUnits);   // the edge's unit owners
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == nw) {  // the producer: lane r copies tile row r
+    const int nitems = *a.nitems;
+    int gi = 0;      // the block's g slot fills so far
+    for (int n = 0;; ++n) {
+      int it = 0;
+      if (lane == 0) it = atomicAdd(a.claim, 1);
+      it = __shfl_sync(0xffffffffu, it, 0);
+      const bool live = it < nitems;
+      const int4 item = live ? a.items[it] : make_int4(0, -1, a.zero, 0);
+      // lane k holds the item's records k and k + 32
+      const int2 r0 =
+          lane < item.y ? a.rec[item.x + lane] : make_int2(0, 0);
+      const int2 r1 =
+          lane + 32 < item.y ? a.rec[item.x + lane + 32] : make_int2(0, 0);
+      const bool tiled = live && item.z != a.zero;
+      PairRect t{0, 0, 0, 0, 0, 0, 0};
+      if (tiled)
+        t = pair_rect(item.z, WY, WX, a.TY, a.NYB, a.NXB, a.H, a.W);
+      const int j = t.j, bx = t.bx, y0 = t.y0, rows = t.rows, x0 = t.x0,
+                nx = t.nx;
+      mbar_wait(empty, (n & 1) ^ 1);
+      if (lane == 0) {
+        *s_item = make_int4(item.y, y0, bx, tiled);
+        if (rows > 0)
+          mbar_expect_tx(full, rows * nx * kRowBytes);
+        else
+          mbar_arrive(full);
+      }
+      __syncwarp();
+      if (lane < rows)
+        bulk_load(tile0 + (lane * WX + x0 - bx) * kRowBytes,
+                  a.fmap + ((static_cast<size_t>(j) * a.H + y0 + lane) *
+                                a.W + x0) * kC,
+                  nx * kRowBytes, full);
+      if (!live) break;
+      for (int k = 0; k < item.y; ++k, ++gi) {
+        const int2 rk = k < 32 ? r0 : r1;
+        const int e = __shfl_sync(0xffffffffu, rk.x, k & 31);
+        const int by = __shfl_sync(0xffffffffu, rk.y, k & 31);
+        if (lane == 0) {
+          const int sl = gi % NG;
+          const uint32_t gfull = gfull0 + 8 * sl;
+          mbar_wait(gempty0 + 8 * sl, ((gi / NG) & 1) ^ 1);
+          *reinterpret_cast<int2*>(slots + sl * P::kSlotBytes + kGBytes) =
+              make_int2(e, by);
+          if (tiled) {
+            mbar_expect_tx(gfull, kGBytes);
+            bulk_load(slot0 + sl * P::kSlotBytes,
+                      a.g + static_cast<size_t>(e) * kP2 * kC, kGBytes,
+                      gfull);
+          } else {
+            mbar_arrive(gfull);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: the block's units of work (an edge's runs of kUnit tile
+  // pairs), numbered over its edges, dealt round-robin to the warps (warp w
+  // takes unit u of the block's gi-th edge where gi * kUnits + u = w mod
+  // nw); only a unit's warp waits for the edge's g slot and releases it
+  const int grp = lane >> 2, t = lane & 3;
+  int gi = 0, first = warp;   // this warp's unit of edge gi
+  for (int n = 0;; ++n) {
+    mbar_wait(full, n & 1);
+    const int4 item = *s_item;   // (edges or -1, y0, bx, tiled)
+    if (item.x < 0) break;
+    // this lane's window columns 2t + c that lie in the map (bit c)
+    const int clo = max(0, -item.z), chi = min(WX, a.W - item.z);
+    const uint32_t cols = item.w && chi > clo
+                              ? ((((1u << chi) - 1u) >> clo) << clo) >> (2 * t)
+                              : 0u;
+    for (int k = 0; k < item.x; ++k, ++gi) {
+      if (first < P::kUnits) {
+        const int sl = gi % NG;
+        mbar_wait(gfull0 + 8 * sl, (gi / NG) & 1);
+        const unsigned char* slot = slots + sl * P::kSlotBytes;
+        const GFrag g = load_gfrag(reinterpret_cast<const uint4*>(slot));
+        const int2 eb = *reinterpret_cast<const int2*>(slot + kGBytes);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(gempty0 + 8 * sl);
+        // the edge's window rows wy with eb.y + wy in the map (bit wy)
+        const int rlo = max(0, -eb.y), rhi = min(WY, a.H - eb.y);
+        const uint32_t rows =
+            rhi > rlo ? (((1u << rhi) - 1u) >> rlo) << rlo : 0u;
+        bf16* o = a.out + static_cast<size_t>(eb.x) * kP2 * N + 2 * t;
+        const uint4* tile = smem + grp * kRowU4;
+        const int srow0 = eb.y - item.y;
+        if (first == 0)
+          pair_unit<L, 0>(g, tile, srow0, rows, cols, o + grp * N,
+                          o + 8 * N);
+        if constexpr (P::kUnits > 1) {
+          if (first == 1)
+            pair_unit<L, 1>(g, tile, srow0, rows, cols, o + grp * N,
+                            o + 8 * N);
+        }
+        if constexpr (P::kUnits > 2) {
+          if (first == 2)
+            pair_unit<L, 2>(g, tile, srow0, rows, cols, o + grp * N,
+                            o + 8 * N);
+        }
+      }
+      first = ((first - P::kUnits) % nw + nw) % nw;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty);
+  }
+}
+
+// probe_pair_tiles<L> for ring_shape
+template <int L>
+struct PairTileKernel {
+  static const void* fn() {
+    return reinterpret_cast<const void*>(probe_pair_tiles<L>);
+  }
+  static constexpr int kThreads = PairLevel<L>::kThreads;
+  static constexpr int kSmem = PairLevel<L>::kSmem;
+  static constexpr int kBlocksPerSm = PairTile<L>::kBlocksPerSm;
+};
+
+// The two levels' binning in `scratch` (int32; nullptr: sizes only):
+// count1, count2 (together, zeroed by the launch), then per level items
+// [4E], rec [2E], part [2 nblocks], key [E], off [nbins], nitems, claim,
+// padded to 16 bytes. Returns the words needed, or -1 past int32.
+long long pair_plan(int E, int F, int H1, int W1, int H2, int W2,
+                    int* scratch, PairBins* b) {
+  const long long n1 = pair_bins_shape<1>(F, H1, W1, &b[0].TY, &b[0].NYB,
+                                          &b[0].NXB);
+  const long long n2 = pair_bins_shape<2>(F, H2, W2, &b[1].TY, &b[1].NYB,
+                                          &b[1].NXB);
+  if (n1 < 0 || n2 < 0) return -1;
+  auto round4 = [](long long w) { return (w + 3) / 4 * 4; };
+  long long at = round4(n1 + n2);
+  const long long nb[2] = {n1, n2};
+  for (int l = 0; l < 2; ++l) {
+    PairBins& x = b[l];
+    x.nbins = static_cast<int>(nb[l]);
+    x.nblocks = static_cast<int>((nb[l] + kScanThreads - 1) / kScanThreads);
+    x.WY = l ? PairLevel<2>::kWY : PairLevel<1>::kWY;
+    x.WX = l ? PairLevel<2>::kWX : PairLevel<1>::kWX;
+    x.H = l ? H2 : H1;
+    x.W = l ? W2 : W1;
+    x.items_at = at;
+    x.nitems_at = at + 6ll * E + 2ll * x.nblocks + E + nb[l];
+    if (scratch != nullptr) {
+      x.count = scratch + (l ? n1 : 0);
+      x.items = reinterpret_cast<int4*>(scratch + at);
+      x.rec = reinterpret_cast<int2*>(scratch + at + 4ll * E);
+      x.part = reinterpret_cast<int2*>(scratch + at + 6ll * E);
+      x.key = scratch + at + 6ll * E + 2ll * x.nblocks;
+      x.off = x.key + E;
+      x.nitems = x.off + nb[l];
+      x.claim = x.nitems + 1;
+    }
+    at += round4(7ll * E + 2ll * x.nblocks + nb[l] + 2);
+  }
+  return at < (1ll << 31) ? at : -1;
+}
+
+template <int L>
+cudaError_t pair_tiles_shape(int E, int device, RingShape* sh) {
+  const cudaError_t err = ring_shape<PairTileKernel<L>>(E, device, sh);
+  if (err != cudaSuccess) cudaGetLastError();  // see dots_setup
+  return err;
+}
+
+template <int L>
+cudaError_t launch_pair_tiles(const PairBins& b, const bf16* g,
+                              const bf16* fmap, bf16* out, int E, int F,
+                              int H, int W, int device, cudaStream_t s) {
+  RingShape sh;
+  const cudaError_t err = pair_tiles_shape<L>(E, device, &sh);
+  if (err != cudaSuccess) return err;
+  const PairTileArgs a{g,     fmap, out,  b.items, b.nitems, b.claim,
+                       b.rec, F,    H,    W,       b.TY,     b.NYB,
+                       b.NXB, b.nbins - 1};
+  probe_pair_tiles<L><<<sh.grid, sh.threads, sh.smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 // K6 fused_kernel: one resident map (H, W, 128), a 16 x 16 window per edge
 // at (by[e], bx[e]). Out (E, 9, 256) bf16.
 constexpr int kSlab = 16;
@@ -623,6 +1114,10 @@ cudaError_t ring_probe_shape(int which, int E, int device, RingShape* sh,
       return probe_ring_shape<kW12x16>(E, device, sh, ring);
     case kFixedW:
       return probe_ring_shape<kFixedW>(E, device, sh, ring);
+    case kFirst49:
+      return probe_ring_shape<kFirst49>(E, device, sh, ring);
+    case kFirst49S:
+      return probe_ring_shape<kFirst49S>(E, device, sh, ring);
     default:
       return cudaErrorInvalidValue;
   }
@@ -646,19 +1141,105 @@ cudaError_t launch_ring(const PlaneArgs& p, int device, cudaStream_t s) {
 // its own CUDA runtime, so it selects the tensors' device first). E <= 0
 // launches nothing.
 
-// K4. plane1 (E, 9, 288), plane2 (E, 9, 160) bf16.
+// K4. plane1 (E, 9, 288), plane2 (E, 9, 160) bf16: the chain of the
+// target-tile design (pair_bin_count, pair_bin_sums, pair_bin_scan,
+// pair_bin_scatter, probe_pair_tiles<1>, <2>) on `stream`, no synchronize. scratch: int32 of
+// at least probe_planes_pair_scratch(E, F, H1, W1, H2, W2) words, any
+// contents (the launch zeroes what it must).
 extern "C" int probe_planes_pair_launch(
     const void* g, const void* fmap1, const void* fmap2, const void* jj,
     const void* by1, const void* bx1, const void* by2, const void* bx2,
-    void* plane1, void* plane2, int E, int F, int H1, int W1, int H2, int W2,
-    int device, void* stream) {
+    void* plane1, void* plane2, void* scratch, int E, int F, int H1, int W1,
+    int H2, int W2, int device, void* stream) {
   if (E <= 0) return 0;
   if (const int err = set_device(device)) return err;
-  const PlaneArgs p = plane_args(g, fmap1, fmap2, jj, by1, bx1, by2, bx2,
-                                 plane1, plane2, E, F, H1, W1, H2, W2);
-  probe_planes_pair<<<(E + 1) / 2, 2 * kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  PairBins b[2];
+  if (pair_plan(E, F, H1, W1, H2, W2, static_cast<int*>(scratch), b) < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  b[0].by = static_cast<const int*>(by1);
+  b[0].bx = static_cast<const int*>(bx1);
+  b[1].by = static_cast<const int*>(by2);
+  b[1].bx = static_cast<const int*>(bx2);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(
+      b[0].count, 0, sizeof(int) * (static_cast<size_t>(b[0].nbins) +
+                                    b[1].nbins), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = std::min((E + 255) / 256, 4096);
+  pair_bin_count<<<blocks, 256, 0, s>>>(b[0], b[1],
+                                         static_cast<const int*>(jj), E, F,
+                                         H1, W1, H2, W2);
+  const int scan_blocks = b[0].nblocks + b[1].nblocks;
+  pair_bin_sums<<<scan_blocks, kScanThreads, 0, s>>>(b[0], b[1]);
+  pair_bin_scan<<<scan_blocks, kScanThreads, 0, s>>>(b[0], b[1]);
+  pair_bin_scatter<<<blocks, 256, 0, s>>>(b[0], b[1], E);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const bf16* gp = static_cast<const bf16*>(g);
+  err = launch_pair_tiles<1>(b[0], gp, static_cast<const bf16*>(fmap1),
+                             static_cast<bf16*>(plane1), E, F, H1, W1, device,
+                             s);
+  if (err == cudaSuccess)
+    err = launch_pair_tiles<2>(b[1], gp, static_cast<const bf16*>(fmap2),
+                               static_cast<bf16*>(plane2), E, F, H2, W2,
+                               device, s);
+  return static_cast<int>(err);
+}
+
+// The int32 scratch words probe_planes_pair_launch needs (-1: the maps'
+// bins pass int32).
+extern "C" int probe_planes_pair_scratch(int E, int F, int H1, int W1,
+                                         int H2, int W2) {
+  PairBins b[2];
+  return static_cast<int>(pair_plan(std::max(E, 0), F, H1, W1, H2, W2,
+                                    nullptr, b));
+}
+
+// Where a launch left each level's work items in its scratch, in int32
+// words from its start: info[2 * l] the items (int4: first sorted
+// position, edges, bin, the positions of its tile in the map), info[2 * l
+// + 1] their number, for level l + 1. Returns -1 where the scratch entry
+// does.
+extern "C" int probe_planes_pair_items(int E, int F, int H1, int W1, int H2,
+                                       int W2, int* info) {
+  PairBins b[2];
+  if (pair_plan(std::max(E, 0), F, H1, W1, H2, W2, nullptr, b) < 0)
+    return -1;
+  for (int l = 0; l < 2; ++l) {
+    info[2 * l] = static_cast<int>(b[l].items_at);
+    info[2 * l + 1] = static_cast<int>(b[l].nitems_at);
+  }
+  return 0;
+}
+
+// The launch shape of K4's tile kernel of `level` (1 or 2) for E edges on
+// `device`: info[0 .. 4] = grid, threads, dynamic shared memory bytes,
+// registers per thread, blocks per SM; info[5 .. 8] = the tile's map rows,
+// consumer warps, edges per item at most and tile pairs per unit. Any
+// other level returns an error.
+extern "C" int probe_planes_pair_shape(int level, int E, int device,
+                                       int* info) {
+  if (const int err = set_device(device)) return err;
+  RingShape sh;
+  cudaError_t err;
+  if (level == 1) {
+    err = pair_tiles_shape<1>(E, device, &sh);
+    info[5] = PairTile<1>::kRows;
+    info[6] = PairTile<1>::kWarps;
+    info[8] = PairTile<1>::kUnit;
+  } else if (level == 2) {
+    err = pair_tiles_shape<2>(E, device, &sh);
+    info[5] = PairTile<2>::kRows;
+    info[6] = PairTile<2>::kWarps;
+    info[8] = PairTile<2>::kUnit;
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[5] = {sh.grid, sh.threads, sh.smem, sh.regs,
+                       sh.blocks_per_sm};
+  for (int k = 0; k < 5; ++k) info[k] = vals[k];
+  info[7] = kCap;
+  return 0;
 }
 
 // K5. out1 (E, 9, 288), out2 (E, 9, 160) bf16, rolled by sh1 / sh2.
@@ -702,11 +1283,9 @@ extern "C" int probe_planes_first49_launch(
     p.nS1 = nS1;
     p.nS2 = nS2;
     p.sink = static_cast<unsigned*>(sink);
-    probe_planes<true><<<E, kThreads, 0, s>>>(p);
-  } else {
-    probe_planes<false><<<E, kThreads, 0, s>>>(p);
+    return static_cast<int>(launch_ring<kFirst49S>(p, device, s));
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_ring<kFirst49>(p, device, s));
 }
 
 // K8. out1, out2 (E, 9, 192) bf16 from 12 x 16 windows at both levels;
@@ -725,9 +1304,10 @@ extern "C" int probe_planes_w12x16_launch(
                                 : launch_ring<kW12x16>(p, device, s));
 }
 
-// The launch shape probe_planes_roll_launch (which = 0) or
-// probe_planes_w12x16_launch (1: fixed = 0, 2: fixed = 1) takes for E edges
-// on `device`: info[0 .. 4] = grid, threads, dynamic shared memory bytes,
+// The launch shape probe_planes_roll_launch (which = 0),
+// probe_planes_w12x16_launch (1: fixed = 0, 2: fixed = 1) or
+// probe_planes_first49_launch (3: streams = 0, 4: streams = 1) takes for E
+// edges on `device`: info[0 .. 4] = grid, threads, dynamic shared memory bytes,
 // registers per thread, blocks per SM; info[5 .. 7] = the ring's stages,
 // window positions per stage and consumer warps. Any other `which` returns
 // an error.

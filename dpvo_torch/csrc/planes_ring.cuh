@@ -67,11 +67,30 @@
 //   S::base(x)           its window bases (by1, bx1, by2, bx2)
 //   S::shift(x)          its rolls, each in [0, N) of its level (kRoll)
 //   S::g(a, x, e)        its 9 g rows (9 x 128 bf16, contiguous)
+// and, optionally (K7; Opt below gives the others' defaults):
+//   S::kPos1, S::kPos2   the ring's positions per level: the first ones of
+//                        each flattened window (whole tile pairs); the
+//                        producer copies nothing past them (nor past the
+//                        tiles that hold the kept columns)
+//   S::kKeep             the epilogue: the first kKeep columns of each
+//                        level's plane row as f32, out (E * 9, kKeep) per
+//                        level, instead of whole bf16 planes, each warp's
+//                        tile pair staged in a slot of its own and written
+//                        out as whole row runs; only the tiles that hold
+//                        them are copied (a tile pair's second tile past
+//                        them is computed on stale rows, never stored)
+//   S::kStreams, S::Streams, S::streams(a, e, k), S::fold(st), S::sink(a, e, x)
+//                        per-edge input streams that the producer's idle
+//                        lanes (k = lane - window rows) read while the edge's
+//                        copies are in flight, folded by xor into one word
+//                        per edge; the planes never depend on them
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 #include "ring.cuh"
@@ -87,36 +106,74 @@ constexpr int kGBytes = kP2 * kRowBytes;     // an edge's 9 g rows
 // every row of its windows lies above the map
 constexpr int kFar = -(1 << 28);
 
+struct NoStreams {};
+
+// The optional members of a spec: whole windows, bf16 planes and no
+// streams (K2, K5, K8), or what a spec naming kKeep gives (K7).
+template <class S, class = void>
+struct Opt {
+  static constexpr int kPos1 = S::kWY1 * S::kWX1, kPos2 = S::kWY2 * S::kWX2;
+  static constexpr int kKeep = 0;
+  static constexpr bool kStreams = false;
+  using Streams = NoStreams;
+};
+template <class S>
+struct Opt<S, std::void_t<decltype(S::kKeep)>> {
+  static constexpr int kPos1 = S::kPos1, kPos2 = S::kPos2;
+  static constexpr int kKeep = S::kKeep;
+  static constexpr bool kStreams = S::kStreams;
+  using Streams = typename S::Streams;
+};
+
 // The shapes that follow from a spec.
 template <class S>
 struct Geom {
-  static constexpr int kN1 = S::kWY1 * S::kWX1;     // level-1 positions
-  static constexpr int kN2 = S::kWY2 * S::kWX2;     // level-2 positions
+  using O = Opt<S>;
+  static constexpr int kN1 = O::kPos1;              // level-1 positions
+  static constexpr int kN2 = O::kPos2;              // level-2 positions
   static constexpr int kN = kN1 + kN2;              // positions per edge
   static constexpr int kTiles1 = kN1 / 8;           // tiles of 8 at level 1
-  static constexpr int kWinRows = S::kWY1 + S::kWY2;
+  // the window rows that hold those positions, level 1 first
+  static constexpr int kRows1 = (kN1 + S::kWX1 - 1) / S::kWX1;
+  static constexpr int kRows2 = (kN2 + S::kWX2 - 1) / S::kWX2;
+  static constexpr int kWinRows = kRows1 + kRows2;
+  // the positions of each level that are copied and computed: the tiles
+  // that hold its kept columns (kKeep), else all of them
+  static constexpr int kLive1 = O::kKeep ? (O::kKeep + 7) / 8 * 8 : kN1;
+  static constexpr int kLive2 = O::kKeep ? (O::kKeep + 7) / 8 * 8 : kN2;
+  static constexpr bool kPrefix = kLive1 < S::kWY1 * S::kWX1 ||
+                                  kLive2 < S::kWY2 * S::kWX2;
   // a slot: the 9 g rows, the window bases (int4) and the rolls (int2,
   // padded to 16 bytes)
   static constexpr int kSlotBytes = kGBytes + (S::kRoll ? 32 : 16);
   using R = typename S::Ring;
+  // the kKeep epilogue's slots: 9 x 16 f32 per consumer warp
+  static constexpr int kPairBytes = O::kKeep ? R::kWarps * kP2 * 16 * 4 : 0;
   // dynamic shared memory: the stages, the g double buffer, the barriers
-  // full[stages], empty[stages], g_full[2], g_empty[2]
+  // full[stages], empty[stages], g_full[2], g_empty[2], the kKeep slots
   static constexpr int kSmem = R::kStages * R::kRows * kRowBytes +
-                               2 * kSlotBytes + 8 * (2 * R::kStages + 4);
+                               2 * kSlotBytes + 8 * (2 * R::kStages + 4) +
+                               kPairBytes;
   static constexpr int kThreads = 32 * (R::kWarps + 1);
   static_assert(S::kWX1 % 8 == 0 && S::kWX2 % 8 == 0,
                 "a tile of 8 positions lies in one window row");
-  static_assert(kN1 % 16 == 0, "a tile pair lies in one level");
+  static_assert(kN1 % 16 == 0 && kN2 % 16 == 0,
+                "a tile pair lies in one level");
+  static_assert(kN1 <= S::kWY1 * S::kWX1 && kN2 <= S::kWY2 * S::kWX2,
+                "positions of the windows");
+  static_assert(O::kKeep <= kN1 && O::kKeep <= kN2, "kept columns computed");
   static_assert(kWinRows <= 32, "one producer lane per window row");
   static_assert(R::kRows % 16 == 0 && kN % R::kRows == 0,
                 "stages of whole tile pairs");
+  static_assert(!S::kRoll || !kPrefix, "a roll takes whole windows");
   static_assert((kSmem + 1024) * R::kBlocksPerSm <= 228 * 1024,
                 "the ring's blocks fit an SM (1 KB reserved per block)");
 };
 
-// Window row r of an edge (r < WY1: level-1 row r, else level-2 row
-// r - WY1) inside the map: the edge's positions [qa, qb) in that row whose
-// pixels lie in the map, and the map pixel of the first (qa == qb: none).
+// Window row r of an edge (r < kRows1: level-1 row r, else level-2 row
+// r - kRows1) inside the map: the edge's positions [qa, qb) in that row
+// whose pixels lie in the map (and among its level's first kLive1 /
+// kLive2), and the map pixel of the first (qa >= qb: none).
 struct RowRun {
   int qa, qb;
   const bf16* src;
@@ -127,8 +184,8 @@ __device__ __forceinline__ RowRun row_run(int r, int4 base, const bf16* f1,
                                           const bf16* f2, int H1, int W1,
                                           int H2, int W2) {
   using G = Geom<S>;
-  const bool l2 = r >= S::kWY1;
-  const int wy = l2 ? r - S::kWY1 : r, wx = l2 ? S::kWX2 : S::kWX1;
+  const bool l2 = r >= G::kRows1;
+  const int wy = l2 ? r - G::kRows1 : r, wx = l2 ? S::kWX2 : S::kWX1;
   const int y = (l2 ? base.z : base.x) + wy, bx = l2 ? base.w : base.y;
   const int W = l2 ? W2 : W1;
   const int x0 = max(bx, 0), x1 = min(bx + wx, W);
@@ -136,7 +193,9 @@ __device__ __forceinline__ RowRun row_run(int r, int4 base, const bf16* f1,
     return RowRun{0, 0, nullptr};
   // the position of map column x in this row is q0 + x
   const int q0 = (l2 ? G::kN1 : 0) + wy * wx - bx;
-  return RowRun{q0 + x0, q0 + x1,
+  int qb = q0 + x1;
+  if constexpr (G::kPrefix) qb = min(qb, l2 ? G::kN1 + G::kLive2 : G::kLive1);
+  return RowRun{q0 + x0, qb,
                 (l2 ? f2 : f1) + (static_cast<size_t>(y) * W + x0) * kC};
 }
 
@@ -225,6 +284,48 @@ __device__ __forceinline__ void store_planes_pair(
         t < 2 ? make_uint2(xa8, ya8) : make_uint2(xb8, yb8);
 }
 
+// Two adjacent tiles tq, tq + 1 (tq even, one level) of edge e: the
+// first kKeep columns of each g row as f32. The warp stages the pair's 9 x
+// 16 products (columns outside the map zero) in its own slot wb, then
+// writes each g row's run of kept columns (64 bytes) with 16 consecutive
+// lanes, two rows per store: whole sectors, where 4-byte stores straight
+// from registers wrote each sector in halves across 8 rows (rows of kKeep
+// floats need not be 8-byte aligned, so the lanes cannot store pairs).
+template <class S>
+__device__ __forceinline__ void store_first_pair(
+    const float (&d0)[4], const float (&d1)[4], int tq, int e, int4 base,
+    int H1, int W1, int H2, int W2, float* wb, float* __restrict__ out1,
+    float* __restrict__ out2) {
+  using G = Geom<S>;
+  constexpr int K = Opt<S>::kKeep;
+  const int lane = threadIdx.x & 31, grp = lane >> 2, t = lane & 3;
+  const bool l2 = tq >= G::kTiles1;
+  const int c0 = (l2 ? tq - G::kTiles1 : tq) * 8;   // the pair's column
+  if (c0 >= K) return;   // warp-uniform
+  bool a0, a1, b0, b1;
+  const int2 sh = make_int2(0, 0);
+  tile_cols_in<S>(tq, base, sh, H1, W1, H2, W2, a0, a1);
+  tile_cols_in<S>(tq + 1, base, sh, H1, W1, H2, W2, b0, b1);
+  float* r = wb + grp * 16 + 2 * t;
+  *reinterpret_cast<float2*>(r) =
+      make_float2(a0 ? d0[0] : 0.f, a1 ? d0[1] : 0.f);
+  *reinterpret_cast<float2*>(r + 8) =
+      make_float2(b0 ? d1[0] : 0.f, b1 ? d1[1] : 0.f);
+  if (grp == 0) {
+    *reinterpret_cast<float2*>(r + 8 * 16) =
+        make_float2(a0 ? d0[2] : 0.f, a1 ? d0[3] : 0.f);
+    *reinterpret_cast<float2*>(r + 8 * 16 + 8) =
+        make_float2(b0 ? d1[2] : 0.f, b1 ? d1[3] : 0.f);
+  }
+  __syncwarp();
+  const int j = lane & 15, n = min(16, K - c0);
+  float* o = (l2 ? out2 : out1) + static_cast<size_t>(e) * kP2 * K + c0 + j;
+#pragma unroll
+  for (int p = lane >> 4; p < kP2; p += 2)
+    if (j < n) o[p * K] = wb[p * 16 + j];
+  __syncwarp();
+}
+
 // The kernel body of spec S; its __global__ gives it the launch bounds
 // (Geom<S>::kThreads, S::Ring::kBlocksPerSm) and Geom<S>::kSmem of dynamic
 // shared memory.
@@ -242,6 +343,7 @@ __device__ __forceinline__ void ring_body(const typename S::Args& a) {
   const uint32_t slot0 = ring0 + St * Q * kRowBytes;
   const uint32_t full0 = slot0 + 2 * kSlotBytes, empty0 = full0 + 8 * St;
   const uint32_t gfull0 = empty0 + 8 * St, gempty0 = gfull0 + 16;
+  using O = Opt<S>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int E = a.E, H1 = a.H1, W1 = a.W1, H2 = a.H2, W2 = a.W2;
   if (threadIdx.x == 0) {
@@ -270,6 +372,11 @@ __device__ __forceinline__ void ring_body(const typename S::Args& a) {
       const int4 base = ok ? S::base(cur) : make_int4(kFar, 0, kFar, 0);
       int2 sh = make_int2(0, 0);
       if constexpr (S::kRoll) sh = S::shift(cur);
+      // the idle lanes' loads of the edge's streams, folded after its copies
+      typename O::Streams st{};
+      if constexpr (O::kStreams) {
+        if (lane >= G::kWinRows) st = S::streams(a, e, lane - G::kWinRows);
+      }
       if (lane == 0) {
         const int sl = i & 1;
         const uint32_t gfull = gfull0 + 8 * sl;
@@ -293,7 +400,7 @@ __device__ __forceinline__ void ring_body(const typename S::Args& a) {
       // wraps it, [pb, pb + nb), whose first row is the run's row na
       int pa = run.qa, na = run.qb - run.qa, pb = 0, nb = 0;
       if constexpr (S::kRoll) {
-        const bool l2 = lane >= S::kWY1;
+        const bool l2 = lane >= G::kRows1;
         const int off = l2 ? G::kN1 : 0, n = l2 ? G::kN2 : G::kN1;
         pa -= l2 ? sh.y : sh.x;
         if (pa < off) pa += n;
@@ -330,14 +437,26 @@ __device__ __forceinline__ void ring_body(const typename S::Args& a) {
           phase ^= 1;
         }
       }
+      if constexpr (O::kStreams) {
+        const unsigned x = __reduce_xor_sync(
+            0xffffffffu, lane >= G::kWinRows ? S::fold(st) : 0u);
+        if (lane == 0) S::sink(a, e, x);
+      }
     }
     return;
   }
 
   // the consumers: warp w takes the tile pairs (2w, 2w + 1), (2w + 2nw,
   // 2w + 2nw + 1), ... of every stage
-  bf16* plane1 = static_cast<bf16*>(a.out1);
-  bf16* plane2 = static_cast<bf16*>(a.out2);
+  // the kKeep epilogue's slots, one per consumer warp: 9 x 16 f32
+  float* wbuf = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(smem) + G::kSmem - G::kPairBytes);
+  bf16* plane1 = nullptr;
+  bf16* plane2 = nullptr;
+  if constexpr (O::kKeep == 0) {
+    plane1 = static_cast<bf16*>(a.out1);
+    plane2 = static_cast<bf16*>(a.out2);
+  }
   const int grp = lane >> 2;
   const int sw = grp & 1;
   int stage = 0;
@@ -363,8 +482,15 @@ __device__ __forceinline__ void ring_body(const typename S::Args& a) {
         tile_mma(g, b, d0);
         stage_b(st + (tile * 8 + 8 + grp) * kRowU4, sw, b);
         tile_mma(g, b, d1);
-        store_planes_pair<S>(d0, d1, c * (Q / 8) + tile, e, base, sh, H1,
-                             W1, H2, W2, plane1, plane2);
+        const int tq = c * (Q / 8) + tile;
+        if constexpr (O::kKeep == 0)
+          store_planes_pair<S>(d0, d1, tq, e, base, sh, H1, W1, H2, W2,
+                               plane1, plane2);
+        else
+          store_first_pair<S>(d0, d1, tq, e, base, H1, W1, H2, W2,
+                              wbuf + warp * kP2 * 16,
+                              static_cast<float*>(a.out1),
+                              static_cast<float*>(a.out2));
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(empty0 + 8 * stage);

@@ -15,11 +15,14 @@ kernels; one wrapper per instantiation:
                       twodots, rank3)
   planes_fixedw   K8  the same, mode fixedw
 
-K5 and K8 run on K2's design (csrc/planes_ring.cuh, shared with
+K5, K7 and K8 run on K2's design (csrc/planes_ring.cuh, shared with
 ops/corr_fused.py's bf16 kernel): a persistent grid, window rows streamed
 into a shared-memory ring by bulk copies, dots on the tensor cores; each
 instantiation's ring is fixed at compile time (PLANES_RING) and its launch
-shape is `planes_ring_shape`.
+shape is `planes_ring_shape`. K4 bins its edges by target tile on the
+device and stages each tile's map rows once per work item of up to
+PAIR_CAP edges (PAIR_TILE, `pair_shape`; `pair_work` reads the items of
+one call back).
 
 Inputs are in the port's terms: unpadded channels-last bf16 maps, the
 edges' pre-gathered source rows g9 (E, 9, 128), int32 target frames jj and
@@ -35,6 +38,7 @@ compiled from the checkout's source on first use (ops/cuda_lib.py).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -46,6 +50,8 @@ WY, WX = 12, 24          # K2's level-1 window (K4, K5, K7)
 WY2, WX2 = 10, 16        # K2's level-2 window
 WV = (12, 16)            # K8's window at both levels
 FIRST = 49               # K7 keeps the first 49 columns of each level
+FIRST_POS = 64           # ... of the first 64 positions of its ring,
+FIRST_LIVE = 56          # ... of which the tiles that hold them are copied
 DOTS_W = 384             # K6 dot_kernel's window rows
 DOTS2_W = 256            # K6 dot_kernel2 reads the first 256 of them
 SLAB = 16                # K6 fused_kernel's 16 x 16 window
@@ -54,8 +60,17 @@ _CHUNK = 512             # edges per chunk of the plain versions
 # ProbeRing): stages, window positions per stage, consumer warps, blocks
 # asked for on each SM
 PLANES_RING = {'planes_roll': (3, 64, 2, 4), 'planes_w12x16': (3, 64, 2, 4),
-               'planes_fixedw': (3, 64, 2, 4)}
-_RING_WHICH = {'planes_roll': 0, 'planes_w12x16': 1, 'planes_fixedw': 2}
+               'planes_fixedw': (3, 64, 2, 4),
+               'planes_first49': (2, 128, 4, 3),
+               'planes_first49_streams': (2, 128, 4, 3)}
+_RING_WHICH = {'planes_roll': 0, 'planes_w12x16': 1, 'planes_fixedw': 2,
+               'planes_first49': 3, 'planes_first49_streams': 4}
+FIRST49 = ('planes_first49', 'planes_first49_streams')
+# K4's tile per level (csrc/corr_probes.cu:PairTile): map rows at most,
+# consumer warps, blocks asked for on each SM, tile pairs per unit of work;
+# edges per work item at most
+PAIR_TILE = {1: (15, 4, 2, 9), 2: (30, 8, 1, 10)}
+PAIR_CAP = 64
 
 launches = dict.fromkeys((
     'planes_pair', 'planes_roll', 'dots', 'dots2', 'slab', 'planes_first49',
@@ -72,7 +87,10 @@ def reset_launches():
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the C entries of csrc/corr_probes.cu and their argument types
 SIGNATURES = {
-    'probe_planes_pair_launch': [_P] * 10 + [_I] * 7 + [_P],
+    'probe_planes_pair_launch': [_P] * 11 + [_I] * 7 + [_P],
+    'probe_planes_pair_scratch': [_I] * 6,
+    'probe_planes_pair_items': [_I] * 6 + [_P],
+    'probe_planes_pair_shape': [_I] * 3 + [_P],
     'probe_planes_roll_launch': [_P] * 12 + [_I] * 7 + [_P],
     'probe_planes_first49_launch': ([_P] * 14 + [_I] * 2 + [_P] * 3 +
                                     [_I] * 8 + [_P]),
@@ -162,19 +180,31 @@ def planes_w12x16_plain(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2):
             window_dots(g9, fmap2, jj, by2, bx2, wx, wy * wx).bfloat16())
 
 
+def ring_windows(key):
+    """The windows of ring instantiation `key` (a key of PLANES_RING) as
+    ((columns, positions copied) of level 1, of level 2): K7 copies the
+    first FIRST_LIVE positions of K2's windows."""
+    if key == 'planes_roll':
+        return (WX, WY * WX), (WX2, WY2 * WX2)
+    if key in FIRST49:
+        return (WX, FIRST_LIVE), (WX2, FIRST_LIVE)
+    return (WV[1], WV[0] * WV[1]), (WV[1], WV[0] * WV[1])
+
+
 def ring_rows(key, jj, by1, bx1, by2, bx2, F, H1, W1, H2, W2):
     """(E,) int64: the window positions of each edge that lie inside the
     map, at both levels, for instantiation `key` of PLANES_RING (for
     planes_fixedw pass zero bases) -- the 256-byte channel rows its ring
     copies for the edge (0 for an edge whose jj is out of range)."""
-    wins = {'planes_roll': ((WY, WX), (WY2, WX2))}.get(key, (WV, WV))
     jj = jj.long()
     n = torch.zeros_like(jj)
-    for by, bx, (wy, wx), H, W in ((by1, bx1, wins[0], H1, W1),
-                                   (by2, bx2, wins[1], H2, W2)):
-        y = by.long()[:, None] + torch.arange(wy, device=jj.device)
-        x = bx.long()[:, None] + torch.arange(wx, device=jj.device)
-        n += ((y >= 0) & (y < H)).sum(1) * ((x >= 0) & (x < W)).sum(1)
+    for by, bx, (wx, npos), H, W in zip((by1, by2), (bx1, bx2),
+                                        ring_windows(key), (H1, H2),
+                                        (W1, W2)):
+        q = torch.arange(npos, device=jj.device)
+        y = by.long()[:, None] + q // wx
+        x = bx.long()[:, None] + q % wx
+        n += ((y >= 0) & (y < H) & (x >= 0) & (x < W)).sum(1)
     return torch.where((jj >= 0) & (jj < F), n, 0)
 
 
@@ -274,21 +304,73 @@ def _stream(dev):
     return dev.index, torch.cuda.current_stream(dev).cuda_stream
 
 
-def planes_pair(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2):
-    """K4: K2's planes, two edges per block on the card (see
-    planes_pair_plain). CPU tensors take the plain version."""
-    dev = _device(g9)
-    if dev.type == 'cpu':
-        return planes_pair_plain(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2)
+def _pair_chain(dev, g9, fmap1, fmap2, jj, by1, bx1, by2, bx2):
+    """K4's chain on CUDA tensors: (plane1, plane2, its int32 scratch or
+    None for no edges, E, the maps' shapes)."""
     E, shp = _check_maps(dev, g9, fmap1, fmap2, jj=jj, by1=by1, bx1=bx1,
                          by2=by2, bx2=bx2)
     o1 = torch.empty((E, P2, WY * WX), dtype=torch.bfloat16, device=dev)
     o2 = torch.empty((E, P2, WY2 * WX2), dtype=torch.bfloat16, device=dev)
+    scratch = None
     if E:
+        words = _lib.probe_planes_pair_scratch(E, *shp)
+        if words < 0:
+            raise ValueError(f'planes_pair: maps {shp} give more bins than '
+                             'int32 counts')
+        scratch = torch.empty(words, dtype=torch.int32, device=dev)
         _launched('planes_pair', _lib.probe_planes_pair_launch(
-            *map(_ptr, (g9, fmap1, fmap2, jj, by1, bx1, by2, bx2, o1, o2)),
-            E, *shp, *_stream(dev)))
-    return o1, o2
+            *map(_ptr, (g9, fmap1, fmap2, jj, by1, bx1, by2, bx2, o1, o2,
+                        scratch)), E, *shp, *_stream(dev)))
+    return o1, o2, scratch, E, shp
+
+
+def planes_pair(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2):
+    """K4: K2's planes with g rows g9[e] (see planes_pair_plain), on the
+    card as target tiles: the edges binned by tile on the device, each
+    tile's map rows staged once per work item; one chain of kernels on the
+    current stream, with no synchronize. Edges need not be sorted. CPU
+    tensors take the plain version."""
+    dev = _device(g9)
+    if dev.type == 'cpu':
+        return planes_pair_plain(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2)
+    return _pair_chain(dev, g9, fmap1, fmap2, jj, by1, bx1, by2, bx2)[:2]
+
+
+def pair_work(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2):
+    """K4's work items as its chain makes them on the card: one call of
+    planes_pair's chain (one launch) on CUDA tensors, then its scratch read
+    back (a synchronize; for checks and reports, never on the path).
+    Returns [items of level 1, of level 2], each (n, 4) int64 on the CPU in
+    the kernel's order: first position in the edges sorted by bin, edges,
+    bin (the last bin: the edges that write zeros), the positions of the
+    bin's tile that lie in the map (0 for the zero bin)."""
+    dev = _device(g9)
+    if dev.type != 'cuda':
+        raise ValueError('pair_work reads the items of a launch on the card')
+    _, _, scratch, E, shp = _pair_chain(dev, g9, fmap1, fmap2, jj, by1, bx1,
+                                        by2, bx2)
+    if scratch is None:
+        return [torch.zeros((0, 4), dtype=torch.int64)] * 2
+    info = (ctypes.c_int * 4)()
+    if _lib.probe_planes_pair_items(E, *shp, info) != 0:
+        raise ValueError(f'planes_pair: maps {shp} give more bins than '
+                         'int32 counts')
+    host = scratch.cpu()
+    return [host[info[2 * l]:info[2 * l] + 4 * int(host[info[2 * l + 1]])]
+            .reshape(-1, 4).long() for l in range(2)]
+
+
+def pair_stats(work):
+    """What K4's chain reads from L2 per call, from its work items
+    (pair_work): {'items', 'edges_per_item' (mean), 'tile_bytes' (each
+    item's tile in the map, both levels), 'g_bytes' (the g rows of the
+    edges of items that copy a tile)}."""
+    items = torch.cat(work)
+    n = max(len(items), 1)
+    tiled = items[:, 3] > 0
+    return dict(items=len(items), edges_per_item=int(items[:, 1].sum()) / n,
+                tile_bytes=int(items[:, 3].sum()) * C * 2,
+                g_bytes=int(items[tiled, 1].sum()) * P2 * C * 2)
 
 
 def planes_roll(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2, sh1, sh2):
@@ -312,11 +394,11 @@ def planes_roll(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2, sh1, sh2):
 
 def planes_first49(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2, streams=None):
     """K7: the first 49 f32 plane columns of each level (see
-    planes_first49_plain). `streams` = (s1, fr1, s2, fr2, S1, S2) takes
-    the probe's STREAMS=1 variant, which also reads s1, s2 (E * 9, 1)
-    int32, fr1, fr2 (E * 9, 2) f32 and the f32 blocks S1 (7 * 24, 49),
-    S2 (7 * 16, 49); the result does not depend on them. CPU tensors take
-    the plain version."""
+    planes_first49_plain), on K2's ring on the card. `streams` = (s1, fr1,
+    s2, fr2, S1, S2) takes the probe's STREAMS=1 variant, which also reads
+    s1, s2 (E * 9, 1) int32, fr1, fr2 (E * 9, 2) f32 and the f32 blocks
+    S1 (7 * 24, 49), S2 (7 * 16, 49); the result does not depend on them.
+    CPU tensors take the plain version."""
     dev = _device(g9)
     if dev.type == 'cpu':
         return planes_first49_plain(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2)
@@ -387,11 +469,52 @@ def ring_smem(key):
     """Dynamic shared memory per block of instantiation `key` on the ring
     (a key of PLANES_RING), in bytes: the stages of 256-byte channel rows,
     two slots of an edge's 9 g rows, its four window bases (and for
-    planes_roll its two rolls, padded to 16 bytes), and 8-byte barriers
-    (full and empty per stage, two per slot)."""
-    stages, rows = PLANES_RING[key][:2]
+    planes_roll its two rolls, padded to 16 bytes), 8-byte barriers (full
+    and empty per stage, two per slot) and, for K7, a slot of 9 x 16 f32
+    per consumer warp."""
+    stages, rows, warps = PLANES_RING[key][:3]
     slot = P2 * C * 2 + (32 if key == 'planes_roll' else 16)
-    return stages * rows * C * 2 + 2 * slot + 8 * (2 * stages + 4)
+    pairs = warps * P2 * 16 * 4 if key in FIRST49 else 0
+    return stages * rows * C * 2 + 2 * slot + 8 * (2 * stages + 4) + pairs
+
+
+def pair_gslots(level):
+    """The g slots per block of K4's tile kernel at `level`
+    (csrc/corr_probes.cu:PairLevel::kGSlots): at least 4, and a multiple of
+    warps / gcd(warps, units per edge), so that each slot's uses belong to
+    the same warps."""
+    wy, wx = (WY, WX) if level == 1 else (WY2, WX2)
+    warps, unit = PAIR_TILE[level][1], PAIR_TILE[level][3]
+    units = wy * wx // 16 // unit
+    return max(4, warps // math.gcd(warps, units))
+
+
+def pair_smem(level):
+    """Dynamic shared memory per block of K4's tile kernel at `level`, in
+    bytes: the tile (map rows x the window's columns of 256-byte channel
+    rows), pair_gslots slots of an edge's 9 g rows and (edge, by) padded to
+    16 bytes, the item (16 bytes), and 8-byte barriers (the tile's full
+    and empty, two per slot)."""
+    wx = WX if level == 1 else WX2
+    ng = pair_gslots(level)
+    return (PAIR_TILE[level][0] * wx * C * 2 + ng * (P2 * C * 2 + 16) + 16 +
+            8 * (2 + 2 * ng))
+
+
+def pair_shape(level, E, device=0):
+    """The launch shape of K4's tile kernel at `level` (1 or 2) for E
+    edges, as the CUDA runtime reports it: grid, threads, smem (dynamic
+    bytes), regs, resident (blocks per SM), and its tile: rows (map rows
+    at most), warps (consumer warps), cap (edges per item at most), unit
+    (tile pairs per unit of work)."""
+    if _lib is None:
+        build()
+    info = (ctypes.c_int * 9)()
+    err = _lib.probe_planes_pair_shape(level, E, device, info)
+    if err != 0:
+        raise RuntimeError(f'probe_planes_pair_shape: CUDA error {err}')
+    return dict(zip(('grid', 'threads', 'smem', 'regs', 'resident', 'rows',
+                     'warps', 'cap', 'unit'), info))
 
 
 def planes_ring_shape(key, E, device=0):

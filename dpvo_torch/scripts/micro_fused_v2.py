@@ -1,4 +1,4 @@
-"""K2's planes two edges per block (K4) and rolled per edge (K5), on the card.
+"""K2's planes as target tiles (K4) and rolled per edge (K5), on the card.
 
     python -m dpvo_torch.scripts.micro_fused_v2 [--scale S] [--seed N]
 
@@ -11,7 +11,10 @@ block on the CUDA cores), and v3, K3's tap select of both levels on K2's
 planes, on the same inputs. The script's XLA select (`sel`) and its
 corr_fused with that select have no counterpart: the port has one select,
 K3. Each variant is held against its plain version; times are CUDA-event
-medians of 20 (the card only).
+medians of 20 (the card only). On the card it also prints what K4's chain
+reads from L2 per call (the work items its chain made, read back by
+ops/corr_probes.py:pair_work: edges per item, staged tiles and g rows) and
+times K5 against K4 in turns.
 """
 from __future__ import annotations
 
@@ -71,7 +74,10 @@ def main(device='cuda', scale=1.0, seed=0):
     """Runs K4 and K5 (and K2, K3 for reference) against their plain
     versions, and on the card K5 and K4 in turns (device time); returns
     {'E', 'F', 'variants': {name: row}, 'reference': {name: row},
-    'paired': {'planes_roll / planes_pair': _common.paired's dict}}."""
+    'paired': {'planes_roll / planes_pair': _common.paired's dict},
+    'pair_work': on the card the work items of one call of K4's chain
+    (pair_work), 'pair_stats': its items and bytes from L2 (pair_stats);
+    None off the card}."""
     dev = cm.device(device)
     inp = inputs(dev, scale, seed)
     E, F, args, (sh1, sh2), w1, w2 = (inp[k] for k in ('E', 'F', 'args',
@@ -117,15 +123,23 @@ def main(device='cuda', scale=1.0, seed=0):
         lambda: [corr_fused.select_plain(*a) for a in sel],
         sum(cm.nbytes(*a[:7]) for a in sel) + 2 * E * 441 * 4,
         2 * E * 441 * 12, dev)
-    paired = {}
+    paired, work, st = {}, None, None
     if dev.type == 'cuda':
+        work = cp.pair_work(*args)
+        st = cp.pair_stats(work)
+        print(f'  planes_pair (K4) reads per call: {st["items"]} work items, '
+              f'{st["edges_per_item"]!r} edges per item, tiles '
+              f'{st["tile_bytes"] / 1e9!r} GB and g rows '
+              f'{st["g_bytes"] / 1e9!r} GB from L2 (each edge reading its '
+              f'own windows: {E * (n1 + n2) * C * 2 / 1e9!r} GB)', flush=True)
         copied = (int(cp.ring_rows('planes_roll', jj, by1, bx1, by2, bx2, F,
                                    H, W, H2, W2).sum()) + E * P2) * C * 2
         paired['planes_roll / planes_pair'] = cm.paired(
             ('planes_roll (K5)', lambda: cp.planes_roll(*args, sh1, sh2),
              copied), ('planes_pair (K4)', lambda: cp.planes_pair(*args),
-                       None))
-    return dict(E=E, F=F, variants=rows, reference=ref, paired=paired)
+                       st['tile_bytes'] + st['g_bytes']))
+    return dict(E=E, F=F, variants=rows, reference=ref, paired=paired,
+                pair_work=work, pair_stats=st)
 
 
 if __name__ == '__main__':

@@ -10,9 +10,13 @@ bases, f32 out: the first 49 columns of each level's flattened plane row,
 (E * 9, 49) per level. The streams variant also reads per-row s1, s2
 (int32) and fr1, fr2 (f32 pairs) and the blocks S1 (168, 49), S2 (112, 49)
 (seeded random here, zeros in the script): its output must equal the plain
-variant's exactly. Where the CUDA toolkit has cuobjdump, the global loads
-(LDG) of both compiled variants are counted. Each variant is held against
-its plain version; times are CUDA-event medians of 20 (the card only).
+variant's exactly. Both run on K2's ring (csrc/planes_ring.cuh), the
+first 64 positions of each level, the streams read by the producer's idle
+lanes. Where the CUDA toolkit has cuobjdump, the global loads (LDG) of both
+compiled variants are counted. Each variant is held against its plain
+version; times are CUDA-event medians of 20, and on the card the two
+variants are also timed in turns (device time), with the rate at which they
+copy window rows from L2.
 """
 from __future__ import annotations
 
@@ -47,9 +51,9 @@ def sass_loads(so):
         return None
     sass = subprocess.run([tool, '-sass', str(so)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    # probe_planes<kStreams>
-    want = {'12probe_planesILb0E': 'planes_first49',
-            '12probe_planesILb1E': 'planes_first49_streams'}
+    # probe_planes_ring<kFirst49>, <kFirst49S> (RingProbe 3, 4)
+    want = {'17probe_planes_ringILi3E': 'planes_first49',
+            '17probe_planes_ringILi4E': 'planes_first49_streams'}
     counts, name = {}, None
     for line in sass.splitlines():
         m = re.search(r'Function : (\S+)', line)
@@ -62,10 +66,10 @@ def sass_loads(so):
     return counts
 
 
-def main(device='cuda', scale=1.0, seed=0):
-    """Runs both variants against their plain versions; returns {'E', 'F',
-    'variants': {name: row}, 'streams_equal', 'sass_ldg'}."""
-    dev = cm.device(device)
+def inputs(dev, scale=1.0, seed=0):
+    """The probe's seeded inputs on dev: E, F, the planes' arguments
+    `args` (g9, fmap1, fmap2, jj, by1, bx1, by2, bx2) and the STREAMS=1
+    variant's `streams` (s1, fr1, s2, fr2, S1, S2)."""
     E = cm.scaled(E0, scale, 32)
     F = max(2, round(F0 * scale))
     rng = np.random.default_rng(seed)
@@ -85,10 +89,24 @@ def main(device='cuda', scale=1.0, seed=0):
                cm.normal(rng, (R, 2), dev, torch.float32),
                cm.normal(rng, (7 * cp.WX, cp.FIRST), dev, torch.float32),
                cm.normal(rng, (7 * cp.WX2, cp.FIRST), dev, torch.float32))
+    return dict(E=E, F=F, args=(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2),
+                streams=streams)
+
+
+def main(device='cuda', scale=1.0, seed=0):
+    """Runs both variants against their plain versions, and on the card
+    the two in turns (device time); returns {'E', 'F', 'variants': {name:
+    row}, 'streams_equal', 'sass_ldg', 'paired': {'planes_first49_streams
+    / planes_first49': _common.paired's dict}, 'copied' (bytes each
+    variant copies from L2 per call)}."""
+    dev = cm.device(device)
+    inp = inputs(dev, scale, seed)
+    E, F, args, streams = (inp[k] for k in ('E', 'F', 'args', 'streams'))
+    g9, fmap1, fmap2, jj, by1, bx1, by2, bx2 = args
+    R = E * P2
     print(f'micro_onepass_dma: E = {E}, F = {F}, maps {H1}x{W1} / {H2}x{W2}',
           flush=True)
 
-    args = (g9, fmap1, fmap2, jj, by1, bx1, by2, bx2)
     n = cp.FIRST
     nb = (cm.nbytes(g9, jj, by1, bx1, by2, bx2) + 2 * R * n * 4 +
           cm.map_bytes(jj, *cm.window_yx(by1, bx1, cp.WX, n), F, H1, W1) +
@@ -111,12 +129,22 @@ def main(device='cuda', scale=1.0, seed=0):
     if not equal:
         raise RuntimeError('planes_first49: the streams changed the output')
     ldg, note = None, 'no kernels (CPU run)'
+    paired, copied = {}, None
     if dev.type == 'cuda':
         ldg = sass_loads(cp.build())
         note = 'cuobjdump not found' if ldg is None else ldg
+        # window rows of the first 64 positions per level, and the g rows
+        copied = (int(cp.ring_rows('planes_first49', jj, by1, bx1, by2, bx2,
+                                   F, H1, W1, H2, W2).sum()) + E * P2) * C * 2
+        paired['planes_first49_streams / planes_first49'] = cm.paired(
+            ('planes_first49 (K7, STREAMS=1)',
+             lambda: cp.planes_first49(*args, streams=streams), copied),
+            ('planes_first49 (K7, STREAMS=0)',
+             lambda: cp.planes_first49(*args), copied))
     print(f'  STREAMS=1 output equals STREAMS=0: {equal}; global loads in '
           f'the compiled kernels (cuobjdump -sass): {note}', flush=True)
-    return dict(E=E, F=F, variants=rows, streams_equal=equal, sass_ldg=ldg)
+    return dict(E=E, F=F, variants=rows, streams_equal=equal, sass_ldg=ldg,
+                paired=paired, copied=copied)
 
 
 if __name__ == '__main__':

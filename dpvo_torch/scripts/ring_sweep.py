@@ -1,30 +1,37 @@
-"""The kernels on the planes ring against other builds of their sources, on
-the card: K5 (planes_roll), K8 (planes_w12x16, planes_fixedw) and K2
-(ops/corr_fused.planes on bf16 maps), all csrc/planes_ring.cuh:ring_body.
+"""The probes K4 and K7 and the kernels on the planes ring against other
+builds of their sources, on the card: K4 (planes_pair, target tiles), K7
+(planes_first49, both variants), K5 (planes_roll), K8 (planes_w12x16,
+planes_fixedw) and K2 (ops/corr_fused.planes on bf16 maps); K2, K5, K7 and
+K8 run csrc/planes_ring.cuh:ring_body.
 
     python -m dpvo_torch.scripts.ring_sweep [--against DIR] [--sweep]
-                                            [--out FILE]
+                                            [--ablate] [--out FILE]
 
 --against DIR compiles DIR/corr_probes.cu and DIR/corr_fused.cu (the csrc
 directory of another checkout, its headers beside them, e.g. the parent
 commit's unpacked with `git archive`) and times each kernel of this
 checkout against its counterpart there, in turns both ways round
-(_common.time_paired: device time of back-to-back launches): K5 and K4 on
-micro_fused_v2's inputs (K5 also with zero rolls, which wrap no row
-run), K8 (both) and K7 on micro_kernel_variants', K2 on chip_smoke.py's
-phase-3 inputs (E = 49,152) and on micro_fused_v2's. K4 and K7 are not
-on the ring: their ratios show the spread of the measurement.
---sweep compiles copies of this checkout's csrc with other rings for the
-probes (corr_probes.cu:ProbeRing, SWEEP) and times each against the
-checkout's build in turns; their outputs must equal the checkout's bit for
-bit (the ring changes no sum).
-Both print ptxas's register and spill lines of the kernels compared and
+(_common.time_paired: device time of back-to-back launches): K4 and K5 on
+micro_fused_v2's inputs (K5 also with zero rolls, which wrap no row run),
+K7 (both) on micro_onepass_dma's, K8 (both) on micro_kernel_variants', K2
+on chip_smoke.py's phase-3 inputs (E = 49,152) and on micro_fused_v2's.
+--sweep compiles copies of this checkout's csrc with other settings
+(SWEEP: K7's ring, corr_probes.cu:ProbeRing; K4's tiles, PairTile) and times each kernel they change
+against the checkout's build in turns; their outputs must equal the
+checkout's bit for bit (no setting changes a sum).
+--ablate builds copies with parts of K4's tile kernels or of K7's ring
+taken out (ABLATIONS: the global stores, the mma, the copies of map rows
+into shared memory, and their unions; PARTS has each edit) and times each
+against the checkout's build in turns, as the sweep does; their outputs
+are wrong by design and are not compared.
+Each prints ptxas's register and spill lines of the kernels compared and
 the card's name and power limit; --out writes every row as JSON.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import re
 import shutil
@@ -37,25 +44,78 @@ import torch
 from dpvo_torch.ops import corr_fused, cuda_lib
 from dpvo_torch.ops import corr_probes as cp
 from dpvo_torch.scripts import _common as cm
-from dpvo_torch.scripts import micro_fused_v2, micro_kernel_variants
+from dpvo_torch.scripts import (micro_fused_v2, micro_kernel_variants,
+                                micro_onepass_dma)
 
 BUILD = cuda_lib.BUILD_DIR / 'ring_sweep'
-# the probes' rings of each sweep variant, (stages, window positions per
-# stage, consumer warps, blocks per SM): K5 (448 positions per edge) and
-# K8 (384, both instantiations)
-SWEEP = [((3, 64, 4, 4), (3, 64, 4, 4)),
-         ((3, 64, 1, 4), (3, 64, 1, 4)),
-         ((3, 64, 2, 3), (3, 64, 2, 3)),
-         ((2, 64, 2, 5), (2, 64, 2, 5)),
-         ((2, 64, 4, 5), (2, 64, 4, 5)),
-         ((4, 64, 4, 3), (4, 64, 4, 3)),
-         ((6, 32, 1, 4), (6, 32, 1, 4)),
-         ((6, 32, 2, 4), (6, 32, 2, 4)),
-         ((4, 32, 2, 5), (4, 32, 2, 5)),
-         ((2, 112, 2, 3), (2, 96, 2, 4)),
-         ((2, 112, 7, 3), (2, 96, 6, 4)),
-         ((3, 112, 2, 2), (2, 128, 2, 3)),
-         ((3, 112, 7, 2), (2, 128, 8, 3))]
+# the settings of each sweep variant: 'ring', K7's ring (stages, window
+# positions per stage, consumer warps, blocks per SM) for both variants;
+# 'tile', {level: K4's tile (map rows, consumer
+# warps, blocks per SM, tile pairs per unit)}
+SWEEP = [dict(ring=(3, 64, 2, 4)),        # the ring of K5 and K8
+         dict(ring=(3, 64, 4, 4)),
+         dict(ring=(2, 64, 2, 5)),
+         dict(ring=(2, 64, 4, 5)),
+         dict(ring=(1, 128, 4, 4)),        # one stage: one chunk per edge
+         dict(ring=(2, 128, 2, 3)),
+         dict(tile={1: (15, 4, 2, 6)}),     # TY1 = 4
+         dict(tile={1: (15, 4, 2, 18)}),
+         dict(tile={1: (15, 8, 2, 9)}),
+         dict(tile={1: (19, 8, 1, 9)}),     # TY1 = 8
+         dict(tile={1: (23, 8, 1, 9)}),     # TY1 = 12
+         dict(tile={2: (30, 8, 1, 5)}),
+         dict(tile={2: (30, 4, 1, 10)}),
+         dict(tile={2: (19, 4, 2, 10)}),    # 4 row bins of a 30-row map
+         dict(tile={2: (19, 8, 2, 5)})]
+FIRST49 = cp.FIRST49
+
+# the parts of a kernel an ablation takes out: (file in csrc, text, the
+# text that replaces it). Stores stay in the code behind a test that never
+# passes (on a product for K4, on the map's height for K7), so the
+# products stay live; mma is replaced by B's words, so the B loads stay
+# (the A fragment's loads go with it); each copy of map rows into shared
+# memory moves one 256-byte row, so the bytes go and the copies' issue and
+# barriers stay.
+_MMA_OUT = ('{d}[0] = __uint_as_float(b[0].x);\n{i}{d}[1] = '
+            '__uint_as_float(b[1].y);\n{i}{d}[2] = __uint_as_float(b[2].z);'
+            '\n{i}{d}[3] = __uint_as_float(b[3].w);')
+PARTS = {
+    'k4 stores': [
+        ('corr_probes.cu', '      *reinterpret_cast<uint32_t*>(orow + q) =',
+         '      if (d[0] == 1.2345e-38f)\n'
+         '      *reinterpret_cast<uint32_t*>(orow + q) ='),
+        ('corr_probes.cu',
+         '      if (g0)\n        *reinterpret_cast<uint32_t*>(orow8 + q) =',
+         '      if (g0 && d[0] == 1.2345e-38f)\n'
+         '        *reinterpret_cast<uint32_t*>(orow8 + q) =')],
+    'k4 mma': [('corr_probes.cu', '      tile_mma(g, b, d);\n',
+                '      ' + _MMA_OUT.format(d='d', i='      ') + '\n')],
+    'k4 copies': [
+        ('corr_probes.cu', 'mbar_expect_tx(full, rows * nx * kRowBytes);',
+         'mbar_expect_tx(full, rows * kRowBytes);'),
+        ('corr_probes.cu', '                  nx * kRowBytes, full);',
+         '                  kRowBytes, full);')],
+    'k7 stores': [('planes_ring.cuh',
+                   '    if (j < n) o[p * K] = wb[p * 16 + j];',
+                   '    if (j < n && H1 < 0) o[p * K] = wb[p * 16 + j];')],
+    'k7 mma': [('planes_ring.cuh', '        tile_mma(g, b, d0);',
+                '        ' + _MMA_OUT.format(d='d0', i='        ')),
+               ('planes_ring.cuh', '        tile_mma(g, b, d1);',
+                '        ' + _MMA_OUT.format(d='d1', i='        '))],
+    'k7 copies': [
+        ('planes_ring.cuh', '0xffffffffu, (n > 0 ? n * kRowBytes : 0) +',
+         '0xffffffffu, (n > 0 ? kRowBytes : 0) +'),
+        ('planes_ring.cuh', '                    run.src + (lo - pa) * kC, '
+         'n * kRowBytes, full);', '                    run.src + (lo - pa) '
+         '* kC, kRowBytes, full);')],
+}
+# the ablations of --ablate: K4's and K7's parts, alone and together
+ABLATIONS = [dict(ablate=(k + ' stores',)) for k in ('k4', 'k7')] + \
+    [dict(ablate=(k + ' mma',)) for k in ('k4', 'k7')] + \
+    [dict(ablate=(k + ' stores', k + ' mma')) for k in ('k4', 'k7')] + \
+    [dict(ablate=(k + ' copies',)) for k in ('k4', 'k7')] + \
+    [dict(ablate=(k + ' stores', k + ' mma', k + ' copies'))
+     for k in ('k4', 'k7')]
 
 
 def with_ring(src, key, ring):
@@ -72,6 +132,41 @@ def with_ring(src, key, ring):
     return out
 
 
+def with_tile(src, level, tile):
+    """The source with PairTile<level> set to `tile`."""
+    pat = (r'(struct PairTile<' + str(level) + r'> \{  // planes_pair level '
+           r'\d\s*static constexpr int )kRows = \d+, kWarps = \d+, '
+           r'kBlocksPerSm = \d+, kUnit = \d+;')
+    rep = (r'\g<1>kRows = {}, kWarps = {}, kBlocksPerSm = {}, '
+           r'kUnit = {};').format(*tile)
+    out, n = re.subn(pat, rep, src)
+    if n != 1:
+        raise RuntimeError(f'PairTile<{level}> not found')
+    return out
+
+
+def with_parts(csrc, names):
+    """Takes the parts `names` (keys of PARTS) out of the sources in the
+    directory `csrc`, in place."""
+    for name in names:
+        for file, old, new in PARTS[name]:
+            path = Path(csrc) / file
+            src = path.read_text()
+            if src.count(old) != 1:
+                raise RuntimeError(f'{name}: text to edit not found once in '
+                                   f'{file}: {old!r}')
+            path.write_text(src.replace(old, new))
+
+
+def changed(variant):
+    """The wrappers (keys of corr_probes.launches) whose kernels a sweep
+    or ablation variant changes."""
+    if 'ablate' in variant:
+        return ('planes_pair',) if variant['ablate'][0].startswith('k4') \
+            else FIRST49
+    return ('planes_pair',) if 'tile' in variant else FIRST49
+
+
 def compile_lib(csrc, name, tag):
     """csrc/<name>.cu (its headers beside it) built into BUILD/<tag>;
     returns the .so path."""
@@ -80,19 +175,24 @@ def compile_lib(csrc, name, tag):
     return so
 
 
-def variant_csrc(rings):
-    """A copy of this checkout's csrc with the probes' rings `rings`
-    ((K5 ring, K8 ring)) in BUILD/src_<tag>; returns (directory, tag)."""
-    tag = '_'.join('x'.join(map(str, r)) for r in rings)
+def variant_csrc(variant):
+    """A copy of this checkout's csrc with the settings of `variant` (an
+    entry of SWEEP or ABLATIONS) in BUILD/src_<tag>; returns (directory,
+    tag)."""
+    tag = '_'.join(f'{k}{v}' for k, v in sorted(variant.items()))
+    tag = re.sub(r'[^0-9A-Za-z]+', '_', tag).strip('_')
     out = BUILD / f'src_{tag}'
     if out.exists():
         shutil.rmtree(out)
     shutil.copytree(cuda_lib.CSRC, out)
     src = (out / 'corr_probes.cu').read_text()
-    src = with_ring(src, 'planes_roll', rings[0])
-    for key in ('planes_w12x16', 'planes_fixedw'):
-        src = with_ring(src, key, rings[1])
+    if 'ring' in variant:
+        for key in FIRST49:
+            src = with_ring(src, key, variant['ring'])
+    for level, tile in variant.get('tile', {}).items():
+        src = with_tile(src, level, tile)
     (out / 'corr_probes.cu').write_text(src)
+    with_parts(out, variant.get('ablate', ()))
     return out, tag
 
 
@@ -115,18 +215,34 @@ def ptxas(so, names):
 
 
 def on(mod, lib, fn):
-    """fn with module `mod` launching from library `lib`."""
+    """fn(mod) with module `mod` launching from library `lib`."""
     def call():
         mod._lib = lib
-        return fn()
+        return fn(mod)
     return call
 
 
+def module_of(csrc, name):
+    """The wrapper module dpvo_torch/ops/<name>.py of the checkout whose
+    csrc directory is `csrc`, loaded beside this checkout's (its relative
+    imports resolve to this checkout's package), so that each build is
+    called through its own wrapper and C signatures."""
+    path = Path(csrc).resolve().parent / 'ops' / f'{name}.py'
+    spec = importlib.util.spec_from_file_location(
+        f'dpvo_torch.ops._against_{name}', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def calls(dev):
-    """[(name, ring key or None, module, fn)] of every kernel compared, on
-    its inputs; the ring key names the probe's ring (PLANES_RING)."""
+    """[(name, key, module name, fn)] of every kernel compared, on its
+    inputs: fn(module) calls the wrapper of `module` (a corr_probes or
+    corr_fused module); the key names the wrapper (a key of
+    corr_probes.launches; None for K2)."""
     v2 = micro_fused_v2.inputs(dev)
     a5, (sh1, sh2), E5 = v2['args'], v2['sh'], v2['E']
+    a7 = micro_onepass_dma.inputs(dev)
     a8 = micro_kernel_variants.inputs(dev)['args']
     from chip_smoke import corr_case     # phase 3's inputs
     gmap, f1, f2, co, kk, jj = corr_case(49152, 36, 120, 160, 36 * 96, 2)
@@ -140,29 +256,34 @@ def calls(dev):
              torch.arange(E5, dtype=torch.int32, device=dev), *a5[3:])
     zero = torch.zeros_like(sh1)
     return [
-        ('planes_roll (K5)', 'planes_roll', cp,
-         lambda: cp.planes_roll(*a5, sh1, sh2)),
-        ('planes_roll (K5, zero rolls)', 'planes_roll', cp,
-         lambda: cp.planes_roll(*a5, zero, zero)),
-        ('planes_w12x16 (K8)', 'planes_w12x16', cp,
-         lambda: cp.planes_w12x16(*a8)),
-        ('planes_fixedw (K8)', 'planes_fixedw', cp,
-         lambda: cp.planes_fixedw(*a8[:4])),
-        ('planes_pair (K4)', None, cp, lambda: cp.planes_pair(*a5)),
-        ('planes_first49 (K7)', None, cp, lambda: cp.planes_first49(*a8)),
-        ('corr_planes (K2, phase 3)', None, corr_fused,
-         lambda: corr_fused.planes(*k2)),
-        ('corr_planes (K2, K4 inputs)', None, corr_fused,
-         lambda: corr_fused.planes(*k2_v2)),
+        ('planes_pair (K4)', 'planes_pair', 'corr_probes',
+         lambda m: m.planes_pair(*a5)),
+        ('planes_first49 (K7)', 'planes_first49', 'corr_probes',
+         lambda m: m.planes_first49(*a7['args'])),
+        ('planes_first49 (K7, STREAMS=1)', 'planes_first49_streams',
+         'corr_probes',
+         lambda m: m.planes_first49(*a7['args'], streams=a7['streams'])),
+        ('planes_roll (K5)', 'planes_roll', 'corr_probes',
+         lambda m: m.planes_roll(*a5, sh1, sh2)),
+        ('planes_roll (K5, zero rolls)', 'planes_roll', 'corr_probes',
+         lambda m: m.planes_roll(*a5, zero, zero)),
+        ('planes_w12x16 (K8)', 'planes_w12x16', 'corr_probes',
+         lambda m: m.planes_w12x16(*a8)),
+        ('planes_fixedw (K8)', 'planes_fixedw', 'corr_probes',
+         lambda m: m.planes_fixedw(*a8[:4])),
+        ('corr_planes (K2, phase 3)', None, 'corr_fused',
+         lambda m: m.planes(*k2)),
+        ('corr_planes (K2, K4 inputs)', None, 'corr_fused',
+         lambda m: m.planes(*k2_v2)),
     ]
 
 
-def paired_both(mod, new, old, fn):
-    """fn from library `new` against `old` in turns, both ways round
-    (new first, then old first): {'new_ms', 'old_ms', 'ratio' (new /
-    old, the geometric mean of both orders), 'ratios'}."""
-    a, b, r1 = cm.time_paired(on(mod, new, fn), on(mod, old, fn))
-    c, d, r2 = cm.time_paired(on(mod, old, fn), on(mod, new, fn))
+def paired_both(new, old, fn):
+    """fn on `new` against `old` ((module, library) each) in turns, both
+    ways round (new first, then old first): {'new_ms', 'old_ms', 'ratio'
+    (new / old, the geometric mean of both orders), 'ratios'}."""
+    a, b, r1 = cm.time_paired(on(*new, fn), on(*old, fn))
+    c, d, r2 = cm.time_paired(on(*old, fn), on(*new, fn))
     ratio = (a / b * d / c) ** 0.5
     return dict(new_ms=(a + d) / 2, old_ms=(b + c) / 2, ratio=ratio,
                 ratios=r1 + [1 / r for r in r2])
@@ -171,65 +292,73 @@ def paired_both(mod, new, old, fn):
 def against(dev, csrc, rows):
     """This checkout's kernels against DIR's in turns (module
     docstring)."""
-    names = ('probe_planes', 'corr_planes_ring')
+    names = ('probe_planes', 'probe_pair_tiles', 'corr_planes_ring')
+    mods = {'corr_probes': cp, 'corr_fused': corr_fused}
     with ThreadPoolExecutor(2) as ex:
-        sos = list(ex.map(lambda n: compile_lib(csrc, n, 'against'),
-                          ('corr_probes', 'corr_fused')))
-    old = {cp: load(sos[0], cp.SIGNATURES),
-           corr_fused: load(sos[1], corr_fused.SIGNATURES)}
-    new = {cp: cp._lib, corr_fused: corr_fused._lib}
+        sos = dict(zip(mods, ex.map(
+            lambda n: compile_lib(csrc, n, 'against'), mods)))
+    new, old = {}, {}
+    for name, mod in mods.items():
+        mod.build()
+        new[name] = (mod, mod._lib)
+        theirs = module_of(csrc, name)
+        old[name] = (theirs, load(sos[name], theirs.SIGNATURES))
     for tag, libs in (('this checkout', (cp.build(), corr_fused.build())),
-                      (str(csrc), sos)):
+                      (str(csrc), sos.values())):
         for so in libs:
             for k, v in ptxas(Path(so), names).items():
                 print(f'  ptxas ({tag}) {k}: {v}', flush=True)
     for name, _, mod, fn in calls(dev):
-        got, ref = on(mod, new[mod], fn)(), on(mod, old[mod], fn)()
+        got, ref = on(*new[mod], fn)(), on(*old[mod], fn)()
         err, scale, ok = cm.compare(got, ref)
         if not ok:
             raise RuntimeError(f'{name}: this build vs {csrc} off the bound '
                                f'({err} at {scale})')
-        row = paired_both(mod, new[mod], old[mod], fn)
+        row = paired_both(new[mod], old[mod], fn)
         row.update(name=name, max_abs_diff=err)
         rows.append(row)
         print(f'  {name}: this checkout {row["new_ms"]!r} ms, {csrc} '
               f'{row["old_ms"]!r} ms, ratio {row["ratio"]!r} (rounds '
               f'{min(row["ratios"])!r} .. {max(row["ratios"])!r}); '
               f'max|diff| {err!r}', flush=True)
-        mod._lib = new[mod]
+        new[mod][0]._lib = new[mod][1]
         del got, ref
     torch.cuda.empty_cache()
 
 
-def sweep(dev, rows):
-    """The probes' rings of SWEEP against this checkout's in turns."""
+def sweep(dev, rows, variants=SWEEP, compare=True):
+    """The variants (SWEEP, or ABLATIONS with compare False) against this
+    checkout's build in turns, on the kernels each changes; with `compare`
+    their outputs must equal the checkout's bit for bit."""
     cp.build()
     base = cp._lib
-    srcs = [variant_csrc(r) for r in SWEEP]
+    srcs = [variant_csrc(v) for v in variants]
     with ThreadPoolExecutor(len(srcs)) as ex:   # one nvcc per variant
         sos = list(ex.map(lambda s: compile_lib(s[0], 'corr_probes', s[1]),
                           srcs))
-    todo = [c for c in calls(dev) if c[1] is not None]
-    for rings, so in zip(SWEEP, sos):
+    todo = calls(dev)
+    for variant, so in zip(variants, sos):
         lib = load(so, cp.SIGNATURES)
-        for k, v in ptxas(so, ('probe_planes_ring',)).items():
-            print(f'  ptxas {rings}: {k}: {v}', flush=True)
+        for k, v in ptxas(so, ('probe_planes_ring', 'probe_pair_tiles')
+                          ).items():
+            print(f'  ptxas {variant}: {k}: {v}', flush=True)
         for name, key, _, fn in todo:
-            ring = rings[0] if key == 'planes_roll' else rings[1]
-            ref = on(cp, base, fn)()
-            got = on(cp, lib, fn)()
-            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-                raise RuntimeError(f'{name} ring {ring}: output differs')
-            del got, ref
+            if key not in changed(variant):
+                continue
+            if compare:
+                ref = on(cp, base, fn)()
+                got = on(cp, lib, fn)()
+                if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                    raise RuntimeError(f'{name} {variant}: output differs')
+                del got, ref
             ms, base_ms, ratios = cm.time_paired(on(cp, lib, fn),
                                                  on(cp, base, fn))
-            rows.append(dict(name=name, ring=ring, ms=ms, base_ms=base_ms,
-                             ratio=ms / base_ms, ratios=ratios,
-                             base_ring=cp.PLANES_RING[key]))
-            print(f'  {name} ring {ring}: {ms!r} ms against '
-                  f'{cp.PLANES_RING[key]} {base_ms!r} ms, ratio '
-                  f'{ms / base_ms!r} (rounds {min(ratios)!r} .. '
-                  f'{max(ratios)!r})', flush=True)
+            rows.append(dict(name=name, variant=variant, ms=ms,
+                             base_ms=base_ms, ratio=ms / base_ms,
+                             ratios=ratios))
+            print(f'  {name} {variant}: {ms!r} ms against the kept '
+                  f'{base_ms!r} ms, ratio {ms / base_ms!r} (rounds '
+                  f'{min(ratios)!r} .. {max(ratios)!r})', flush=True)
         cp._lib = base
     torch.cuda.empty_cache()
 
@@ -238,6 +367,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--against', type=Path)
     ap.add_argument('--sweep', action='store_true')
+    ap.add_argument('--ablate', action='store_true')
     ap.add_argument('--out', type=Path)
     a = ap.parse_args()
     dev = cm.device('cuda')
@@ -245,13 +375,15 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f'ring_sweep on {smi}', flush=True)
-    rows = {'card': smi, 'against': [], 'sweep': []}
+    rows = {'card': smi, 'against': [], 'sweep': [], 'ablate': []}
     cp.build()
     corr_fused.build()
     if a.against:
         against(dev, a.against, rows['against'])
     if a.sweep:
         sweep(dev, rows['sweep'])
+    if a.ablate:
+        sweep(dev, rows['ablate'], ABLATIONS, compare=False)
     if a.out:
         a.out.parent.mkdir(parents=True, exist_ok=True)
         a.out.write_text(json.dumps(rows, indent=1))

@@ -209,9 +209,13 @@ def test_ring_on_a_side_stream(cuda):
     (torch.bfloat16, 'corr_planes_ring'), (torch.float32, 'corr_planes_kernel')])
 def test_maps_dtype_picks_the_kernel(cuda, dtype, kernel):
     """bf16 maps launch the ring kernel, f32 maps the FMA kernel (by the
-    names in a profiler trace), both against planes_plain."""
+    names in a profiler trace), both against planes_plain. One launch
+    before the profiler's window builds and loads the kernel, so that the
+    traced launch is not the first (CUPTI starts lazily)."""
     from torch.profiler import ProfilerActivity, profile
     args = _planes_case(cuda, dtype, 1000, seed=7)
+    cf.planes(*args)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         got = cf.planes(*args)
         torch.cuda.synchronize()

@@ -1,10 +1,11 @@
 """The kernels on the planes ring (csrc/planes_ring.cuh:ring_body) on the
 CPU: K2 for bf16 maps (csrc/corr_fused.cu:corr_planes_ring) and the probes
-K5 (planes_roll) and K8 (planes_w12x16, planes_fixedw) of
-csrc/corr_probes.cu:probe_planes_ring. Their dataflow emulated in numpy
-against the plain planes (ops/corr_fused.py:planes_plain,
-ops/corr_probes.py:planes_*_plain), their constants read from the sources,
-and the ring's barrier-parity protocol run in random interleavings.
+K5 (planes_roll), K7 (planes_first49, both variants) and K8
+(planes_w12x16, planes_fixedw) of csrc/corr_probes.cu:probe_planes_ring.
+Their dataflow emulated in numpy against the plain planes
+(ops/corr_fused.py:planes_plain, ops/corr_probes.py:planes_*_plain), their
+constants read from the sources, and the ring's barrier-parity protocol
+run in random interleavings.
 
 The emulation follows the kernel step by step: per edge its window bases
 (far above the map for an edge whose source row or frame is out of range;
@@ -18,10 +19,14 @@ that copies none), the mma dot with the channels permuted identically in A
 and B (f32 sums of bf16 inputs, one per k-step of 16 channels), and the
 epilogue that writes columns whose (rolled) position lies outside the map
 as zero, trades columns within each quad of lanes so that a warp stores a
-pair of tiles 16 columns at a time, and rounds to bf16.
+pair of tiles 16 columns at a time, and rounds to bf16. K7's ring holds
+the first 64 positions of each level (its producer lanes own the 7 window
+rows that hold them), copies and computes only the first 56 (the tiles
+that hold its kept columns; each run cut there) and stores the first 49
+columns of each level as f32.
 Bound against the plain version: one bf16 rounding of the same f32 sums in
-another order, 2^-7 |plain| + 1e-5 max|plain|; entries outside the map
-exactly zero."""
+another order, 2^-7 |plain| + 1e-5 max|plain| (K7's f32: the sum order
+only, 1e-5 max|plain|); entries outside the map exactly zero."""
 import re
 from pathlib import Path
 
@@ -43,16 +48,27 @@ FAR = -(1 << 28)
 class Spec:
     """One kernel on the ring: its windows (wy1, wx1, wy2, wx2), its ring
     (stages, rows per stage, consumer warps), whether it rolls (K5), puts
-    its windows at (0, 0) (fixedw), and takes its g rows as g[kk[e]] (K2)
-    or g[e]."""
+    its windows at (0, 0) (fixedw), takes its g rows as g[kk[e]] (K2) or
+    g[e], computes only the first `pos` positions of each level and keeps
+    the first `keep` columns as f32 (K7; else whole bf16 planes)."""
 
-    def __init__(self, key, wins, ring, roll=False, fixed=False, kk=False):
+    def __init__(self, key, wins, ring, roll=False, fixed=False, kk=False,
+                 pos=None, keep=0):
         self.key = key
         (self.wy1, self.wx1), (self.wy2, self.wx2) = wins
         self.stages, self.rows, self.warps = ring[:3]
         self.roll, self.fixed, self.kk = roll, fixed, kk
-        self.n1, self.n2 = self.wy1 * self.wx1, self.wy2 * self.wx2
+        self.n1, self.n2 = pos or (self.wy1 * self.wx1, self.wy2 * self.wx2)
         self.n = self.n1 + self.n2
+        # the window rows that hold those positions (one producer lane each)
+        self.rows1 = -(-self.n1 // self.wx1)
+        self.rows2 = -(-self.n2 // self.wx2)
+        self.keep = keep
+        # the positions of each level copied and computed: the tiles that
+        # hold the kept columns
+        self.live1, self.live2 = ((-(-keep // 8) * 8,) * 2 if keep else
+                                  (self.n1, self.n2))
+        self.live = self.live1 + self.live2
 
 
 K2_WINS = ((cf.WY, cf.WX), (cf.WY2, cf.WX2))
@@ -66,25 +82,30 @@ SPECS = {
                           cp.PLANES_RING['planes_w12x16']),
     'planes_fixedw': Spec('planes_fixedw', (cp.WV, cp.WV),
                           cp.PLANES_RING['planes_fixedw'], fixed=True),
+    **{k: Spec(k, K2_WINS, cp.PLANES_RING[k], pos=(cp.FIRST_POS,) * 2,
+               keep=cp.FIRST) for k in cp.FIRST49},
 }
 
 
 def _row_run(sp, r, base, H1, W1, H2, W2):
-    """The kernel's row_run: window row r of an edge (r < wy1 at level 1,
-    then level 2) as (qa, qb, y, x0, level 2?): its positions [qa, qb)
-    whose pixels lie in the map, from map pixel (y, x0) on; qa == qb for
-    none (and for the producer lanes past the windows' rows, which own
-    none)."""
-    l2 = r >= sp.wy1
-    wy, wx = (r - sp.wy1, sp.wx2) if l2 else (r, sp.wx1)
+    """The kernel's row_run: window row r of an edge (r < rows1 at level
+    1, then level 2) as (qa, qb, y, x0, level 2?): its positions [qa, qb)
+    whose pixels lie in the map (and among its level's first live1 /
+    live2),
+    from map pixel (y, x0) on; qa >= qb for none (and for the producer
+    lanes past the windows' rows, which own none)."""
+    l2 = r >= sp.rows1
+    wy, wx = (r - sp.rows1, sp.wx2) if l2 else (r, sp.wx1)
     y = (base[2] if l2 else base[0]) + wy
     bx = base[3] if l2 else base[1]
     W = W2 if l2 else W1
     x0, x1 = max(bx, 0), min(bx + wx, W)
-    if r >= sp.wy1 + sp.wy2 or not 0 <= y < (H2 if l2 else H1) or x0 >= x1:
+    if r >= sp.rows1 + sp.rows2 or not 0 <= y < (H2 if l2 else H1) or \
+            x0 >= x1:
         return 0, 0, 0, 0, l2
     q0 = (sp.n1 if l2 else 0) + wy * wx - bx
-    return q0 + x0, q0 + x1, y, x0, l2
+    return (q0 + x0, min(q0 + x1, sp.n1 + sp.live2 if l2 else sp.live1), y,
+            x0, l2)
 
 
 def _pieces(sp, r, qa, qb, sh):
@@ -94,7 +115,7 @@ def _pieces(sp, r, qa, qb, sh):
     pa, na = qa, qb - qa
     if not sp.roll:
         return [(pa, na, 0)]
-    l2 = r >= sp.wy1
+    l2 = r >= sp.rows1
     off, n = (sp.n1, sp.n2) if l2 else (0, sp.n1)
     pa -= sh[1] if l2 else sh[0]
     if pa < off:
@@ -163,8 +184,9 @@ def _in_map(sp, l2, q, base, H1, W1, H2, W2):
 
 def _emulate(sp, g, f1, f2, kk, jj, by1, bx1, by2, bx2, sh1, sh2):
     """The ring kernel's dataflow for spec sp in numpy (module docstring).
-    Returns the planes (E, 9, n1), (E, 9, n2) as bf16 tensors and the
-    window rows copied per edge."""
+    Returns the planes (E, 9, n1), (E, 9, n2) as bf16 tensors (K7: the
+    first `keep` columns of each as f32) and the window rows copied per
+    edge."""
     E, Ng, F = len(jj), g.shape[0], f1.shape[0]
     H1, W1, H2, W2 = f1.shape[1], f1.shape[2], f2.shape[1], f2.shape[2]
     Q = sp.rows
@@ -203,7 +225,13 @@ def _emulate(sp, g, f1, f2, kk, jj, by1, bx1, by2, bx2, sh1, sh2):
             for t in range(0, Q // 8, 2):          # a warp's tile pair
                 pair = masked[:, t * 8:t * 8 + 16]
                 col = c * Q + t * 8                # edge position of tile t
-                out[e, :, col:col + 16] = pair[:, _PAIR_COLS]
+                # K7's f32 stores: each lane its own columns
+                out[e, :, col:col + 16] = pair if sp.keep else \
+                    pair[:, _PAIR_COLS]
+    if sp.keep:
+        planes = torch.from_numpy(out)
+        return (planes[..., :sp.keep], planes[..., sp.n1:sp.n1 + sp.keep],
+                copied)
     planes = torch.from_numpy(out).to(torch.bfloat16)
     return planes[..., :sp.n1], planes[..., sp.n1:], copied
 
@@ -264,6 +292,10 @@ def _plain(sp, g, f1, f2, kk, jj, by1, bx1, by2, bx2, sh1, sh2):
                                     sh2)
     if sp.fixed:
         return cp.planes_fixedw_plain(g, f1, f2, jj)
+    if sp.keep:
+        E = len(jj)
+        return [p.reshape(E, P2, sp.keep) for p in cp.planes_first49_plain(
+            g, f1, f2, jj, by1, bx1, by2, bx2)]
     return cp.planes_w12x16_plain(g, f1, f2, jj, by1, bx1, by2, bx2)
 
 
@@ -283,7 +315,7 @@ def _rows_in_map(sp, case):
 # probes' run at 48x80 and on maps smaller than their windows
 DATAFLOW = ([('corr_planes', s, (48, 80)) for s in (0, 1, 2)] +
             [(k, s, hw) for k in ('planes_roll', 'planes_w12x16',
-                                  'planes_fixedw')
+                                  'planes_fixedw', *cp.FIRST49)
              for s, hw in ((0, (48, 80)), (1, (48, 80)), (2, (10, 12)))])
 
 
@@ -296,9 +328,12 @@ def test_ring_dataflow_matches_plain(key, seed, hw):
     case = _case(sp, seed, H1=hw[0], W1=hw[1])
     p1, p2, copied = _emulate(sp, *case)
     for got, r in zip((p1, p2), _plain(sp, *case)):
+        assert got.dtype == r.dtype and got.shape == r.shape
         got, r = got.float(), r.float()
         assert torch.isfinite(got).all()     # no stale row leaks a NaN
-        bound = 2 ** -7 * r.abs() + 1e-5 * r.abs().max()
+        bound = 1e-5 * r.abs().max()
+        if not sp.keep:
+            bound = bound + 2 ** -7 * r.abs()
         assert bool(((got - r).abs() <= bound).all()), \
             (got - r).abs().max()
         assert bool((got[r == 0] == 0).all())
@@ -308,9 +343,9 @@ def test_ring_dataflow_matches_plain(key, seed, hw):
     # is smaller than the windows), zero planes for bad kk / jj
     big = hw == (48, 80)
     assert (copied == 0).any()
-    assert (copied == sp.n).any() == big
-    assert ((copied > 0) & (copied < sp.n)).any() == (not big or
-                                                      not sp.fixed)
+    assert (copied == sp.live).any() == big
+    assert ((copied > 0) & (copied < sp.live)).any() == (not big or
+                                                         not sp.fixed)
     bad = (6, 7, 8, 9, 10) if sp.kk else (7, 9, 10)
     for e in bad:
         assert not p1[e].float().any() and not p2[e].float().any()
@@ -337,9 +372,12 @@ def test_copies_cover_in_map_positions():
                     seen += [(q + i, y, x + i, l2) for i in range(n)]
             want = []
             for s in range(sp.n):                  # ring slot s holds ...
+                # (K7: the first live1 / live2 positions of each level)
                 l2 = s >= sp.n1
                 off, n = (sp.n1, sp.n2) if l2 else (0, sp.n1)
                 q = (s - off + sh[l2]) % n         # ... window position q
+                if q >= (sp.live2 if l2 else sp.live1):
+                    continue
                 wx = sp.wx2 if l2 else sp.wx1
                 y = (base[2] if l2 else base[0]) + q // wx
                 x = (base[3] if l2 else base[1]) + q % wx
@@ -391,11 +429,12 @@ def test_constants_match_kernel_source():
 
 
 @pytest.mark.parametrize('key', ['planes_roll', 'planes_w12x16',
-                                 'planes_fixedw'])
+                                 'planes_fixedw', *cp.FIRST49])
 def test_probe_ring_constants_match_source(key):
     """Each probe's ring in csrc/corr_probes.cu is the one ops/corr_probes
     names, its shape-query number the wrapper's, its stages hold whole
-    tile pairs of whole edges, and its blocks fit an SM."""
+    tile pairs of whole edges, and its blocks fit an SM; K7's positions
+    and kept columns are the wrapper's."""
     ring, which = _probe_source_rings()[key]
     assert ring == cp.PLANES_RING[key]
     assert which == cp._RING_WHICH[key]
@@ -403,9 +442,56 @@ def test_probe_ring_constants_match_source(key):
     stages, rows, warps, blocks = ring
     assert sp.n % rows == 0 and rows % 16 == 0 and sp.n1 % 16 == 0
     slot = P2 * C * 2 + (32 if sp.roll else 16)
-    smem = stages * rows * C * 2 + 2 * slot + 8 * (2 * stages + 4)
+    if sp.keep:
+        src = PROBES_SRC.read_text()
+        assert re.search(r'kPos1 = (\d+), kPos2 = (\d+), kKeep = kFirst;',
+                         src).groups() == (str(sp.n1), str(sp.n2))
+        assert re.search(r'kFirst = (\d+);', src).group(1) == str(sp.keep)
+        assert sp.rows1 + sp.rows2 == 7      # window rows per edge
+        # each consumer warp has a slot of 9 x 16 f32
+        slot_pairs = warps * P2 * 16 * 4
+    else:
+        slot_pairs = 0
+    smem = stages * rows * C * 2 + 2 * slot + 8 * (2 * stages + 4) + \
+        slot_pairs
     assert smem == cp.ring_smem(key)
     assert (smem + 1024) * blocks <= 228 * 1024
+
+
+def _stream_reads(E, nS, idle):
+    """First49Spec::streams' reads over the grid: per edge e and idle
+    producer lane k, the rows e * 9 + k (k < 9) of s1, s2, fr1, fr2, and
+    the elements i = e * 32 + j, j in (k, k + idle) below 32, and i + m *
+    E * 32 below nS, of S1 (S2 alike). Returns (rows read, S elements
+    read), each a list with repeats."""
+    rows, elems = [], []
+    for e in range(E):
+        for k in range(idle):
+            if k < P2:
+                rows.append(e * P2 + k)
+            for j in (k, k + idle):
+                i = e * 32 + j
+                while j < 32 and i < nS:
+                    elems.append(i)
+                    i += E * 32
+    return rows, elems
+
+
+@pytest.mark.parametrize('E', [1, 7, 64, 257, 258, 1000])
+def test_first49_streams_read_each_element_once(E):
+    """K7 STREAMS=1: the producer lanes past K7's 7 window rows read every
+    row of s1, s2, fr1, fr2 and every element of S1 (7 x 24 x 49) and S2
+    (7 x 16 x 49) exactly once over the grid, whatever E; no lane that
+    copies a window row reads a stream."""
+    sp = SPECS['planes_first49_streams']
+    idle = 32 - sp.rows1 - sp.rows2
+    assert idle == 25
+    src = PROBES_SRC.read_text()
+    assert 'const int j = k + kIdle * h;' in src
+    for nS in (7 * cp.WX * cp.FIRST, 7 * cp.WX2 * cp.FIRST):
+        rows, elems = _stream_reads(E, nS, idle)
+        assert sorted(rows) == list(range(E * P2))
+        assert sorted(elems) == list(range(nS))
 
 
 def ring_schedule(E, grid, chunks):
@@ -512,14 +598,19 @@ def _run_block(edges, chunks, stages, warps, rng):
 
 # (E, grid, chunks, stages, warps): K2's ring (7 chunks of 64 positions
 # per edge, 3 stages, 4 consumer warps; 528 blocks on 132 SMs) around its
-# grid, K5's (7 chunks, 3 stages, 2 warps) and K8's (6 chunks, whole laps of
-# the ring; 3 stages, 2 warps), then other shapes
+# grid, K5's (7 chunks, 3 stages, 2 warps), K8's (6 chunks, whole laps of
+# the ring; 3 stages, 2 warps) and K7's (one chunk of 128 per edge on 2
+# stages, 4 warps, 396 blocks; 2 chunks of 64 on 3 stages in its sweep),
+# then other shapes
 @pytest.mark.parametrize('E,grid,chunks,stages,warps', [
     (1, 528, 7, 3, 4), (527, 528, 7, 3, 4), (529, 528, 7, 3, 4),
     (1200, 528, 7, 3, 4), (5, 2, 7, 3, 4), (9, 1, 7, 3, 4),
     (529, 528, 7, 3, 2), (9, 1, 7, 3, 2),
     (1, 528, 6, 3, 2), (529, 528, 6, 3, 2), (1100, 528, 6, 3, 2),
     (9, 1, 6, 3, 2), (7, 2, 6, 2, 4), (8, 3, 6, 4, 4),
+    (1, 396, 1, 2, 4), (397, 396, 1, 2, 4), (1200, 396, 1, 2, 4),
+    (9, 1, 1, 2, 4), (529, 528, 2, 3, 2), (9, 1, 2, 3, 2),
+    (9, 1, 1, 1, 2), (7, 2, 1, 1, 4),
     (7, 3, 14, 8, 4), (6, 2, 2, 2, 3), (4, 1, 1, 3, 2), (5, 2, 4, 1, 1)])
 def test_ring_schedule_reads_each_stage_once(E, grid, chunks, stages,
                                              warps):

@@ -7,14 +7,20 @@ Bounds: bf16 outputs one bf16 rounding apart, |kernel - plain| <= 2^-7
 |plain| + 1e-5 max|plain| (both sum the same f32 products of bf16 values in
 another order, then round); f32 outputs (dots, first49) <= 1e-5
 max|plain| (the sum order only). Window bases reach outside the maps, so
-the zero fill is checked too. The persistent kernels (K6 dots, and K5 /
-K8 on K2's ring) are also run at edge counts around their grids, on a side
-stream and over NaN-filled memory; K6 dots on windows of other lengths."""
+the zero fill is checked too. The persistent kernels (K6 dots, K5 / K7 /
+K8 on K2's ring, K4's tile kernels) are also run at edge counts around
+their grids, on a side stream and over NaN-filled memory; K6 dots on
+windows of other lengths; K4 with unsorted edges, every edge in one bin,
+maps smaller and taller than its tiles, and under
+torch.cuda.set_sync_debug_mode('error'), so that a host synchronize in its
+chain fails; the work items its chain makes (corr_probes.pair_work) equal
+the emulation's (test_torch_corr_tiles.bin_items)."""
 import numpy as np
 import pytest
 import torch
 
 from dpvo_torch.ops import corr_probes as cp
+from test_torch_corr_tiles import bin_work
 
 pytestmark = pytest.mark.cuda
 
@@ -120,13 +126,35 @@ def test_planes_w12x16(cuda, fixed):
         _close(got, cp.planes_w12x16_plain(*args))
 
 
-RING_KEYS = ('planes_roll', 'planes_w12x16', 'planes_fixedw')
+RING_KEYS = ('planes_roll', 'planes_w12x16', 'planes_fixedw',
+             'planes_first49', 'planes_first49_streams')
+
+
+def _streams(E, dev, seed):
+    """Seeded inputs of K7's STREAMS=1 variant for E edges."""
+    R = E * P2
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randint(-2 ** 31, 2 ** 31 - 1, (R, 1), device=dev,
+                          generator=g, dtype=torch.int32),
+            torch.randn(R, 2, device=dev, generator=g),
+            torch.randint(-2 ** 31, 2 ** 31 - 1, (R, 1), device=dev,
+                          generator=g, dtype=torch.int32),
+            torch.randn(R, 2, device=dev, generator=g),
+            torch.randn(7 * 24, 49, device=dev, generator=g),
+            torch.randn(7 * 16, 49, device=dev, generator=g))
 
 
 def _ring_calls(key, args, seed):
     """(kernel, plain) of the ring instantiation `key` on _maps' args; K5's
     rolls zero, odd, negative, at and past the level's positions and at
-    the int32 extremes."""
+    the int32 extremes; K7 STREAMS=1 with seeded streams."""
+    if key == 'planes_first49':
+        return (lambda: cp.planes_first49(*args),
+                lambda: cp.planes_first49_plain(*args))
+    if key == 'planes_first49_streams':
+        st = _streams(args[0].shape[0], args[0].device, seed)
+        return (lambda: cp.planes_first49(*args, streams=st),
+                lambda: cp.planes_first49_plain(*args))
     if key == 'planes_fixedw':
         return (lambda: cp.planes_fixedw(*args[:4]),
                 lambda: cp.planes_fixedw_plain(*args[:4]))
@@ -165,11 +193,14 @@ def test_ring_probe_writes_every_entry_and_repeats(cuda, key):
     fn, plain = _ring_calls(key, args, 11)
     outs = []
     for _ in range(2):
-        n1 = 288 if key == 'planes_roll' else 192
-        n2 = 160 if key == 'planes_roll' else 192
-        for n in (n1, n2):
-            torch.full((2048, P2, n), float('nan'), dtype=torch.bfloat16,
-                       device=cuda)
+        if key in cp.FIRST49:
+            shapes, dt = [(2048 * P2, 49)] * 2, torch.float32
+        else:
+            n1 = 288 if key == 'planes_roll' else 192
+            n2 = 160 if key == 'planes_roll' else 192
+            shapes, dt = [(2048, P2, n1), (2048, P2, n2)], torch.bfloat16
+        for shape in shapes:
+            torch.full(shape, float('nan'), dtype=dt, device=cuda)
         got = _counted(key, fn)
         assert all(bool(torch.isfinite(o).all()) for o in got)
         outs.append([o.clone() for o in got])
@@ -204,6 +235,146 @@ def test_ring_probe_launch_shape(cuda, key):
     full = sh['resident'] * sms
     for E in (1, 7, full - 1, full, full + 1, 49152, 49152 + 13):
         assert cp.planes_ring_shape(key, E)['grid'] == min(E, full), E
+
+
+@pytest.mark.parametrize('E', [1, 100, 4099])
+def test_first49_streams_equal_plain_variant(cuda, E):
+    """K7 STREAMS=1 gives STREAMS=0's planes bit for bit, below, around and
+    past the grid (the streams' reads cover S1 / S2 with a stride of the
+    edges when E is small)."""
+    args = _maps(cuda, E=E, seed=20 + E)
+    a = _counted('planes_first49', lambda: cp.planes_first49(*args))
+    b = _counted('planes_first49_streams', lambda: cp.planes_first49(
+        *args, streams=_streams(E, cuda, E)))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    _close(a, cp.planes_first49_plain(*args))
+
+
+def _pair_check(args):
+    """K4 launched once against its plain version."""
+    _close(_counted('planes_pair', lambda: cp.planes_pair(*args)),
+           cp.planes_pair_plain(*args))
+
+
+def _unsorted(args, seed):
+    """_maps' args with the edges in a seeded random order."""
+    perm = torch.from_numpy(np.random.RandomState(seed).permutation(
+        args[0].shape[0])).to(args[0].device)
+    return (args[0][perm].contiguous(), args[1], args[2],
+            *(t[perm].contiguous() for t in args[3:]))
+
+
+def test_planes_pair_around_the_grid(cuda):
+    """E = 1, one below and above each tile kernel's grid, and 4,099, the
+    edges unsorted, windows across every border and a missing frame."""
+    grids = [cp.pair_shape(level, 1 << 20)['grid'] for level in (1, 2)]
+    for E in sorted({1, *(g + d for g in grids for d in (-1, 1)), 4099}):
+        _pair_check(_unsorted(_maps(cuda, E=E, seed=E), E))
+
+
+def test_planes_pair_one_bin(cuda):
+    """Every edge at one base of one frame (one bin of 3,000 edges at each
+    level, split into items of PAIR_CAP), and every edge at one base with
+    half of them in a missing frame."""
+    g9, f1, f2, jj, by1, bx1, by2, bx2 = _maps(cuda, E=3000, seed=13)
+    for j in (1, None):
+        jj2 = torch.full_like(jj, 1)
+        if j is None:
+            jj2[::2] = 7
+        _pair_check((g9, f1, f2, jj2, torch.full_like(by1, 50),
+                     torch.full_like(bx1, 64), torch.full_like(by2, -3),
+                     torch.full_like(bx2, 30)))
+
+
+@pytest.mark.parametrize('H,W', [(10, 12), (120, 160), (200, 72)])
+def test_planes_pair_map_sizes(cuda, H, W):
+    """Maps smaller than the windows (one row bin at each level), the
+    probe's 120x160 and a map whose level-2 map (50 rows) is taller than a
+    level-2 tile, so that it takes several row bins; unsorted edges."""
+    _pair_check(_unsorted(_maps(cuda, E=2000, H=H, W=W, seed=H), H))
+
+
+def test_planes_pair_writes_every_entry_and_repeats(cuda):
+    """Outputs over NaN-filled memory come out finite (zeros outside the
+    map and for the missing frame), and a second call (its scratch
+    reused) gives the same bits."""
+    args = _unsorted(_maps(cuda, E=2048, seed=14), 14)
+    outs = []
+    for _ in range(2):
+        for n in (288, 160):
+            torch.full((2048, P2, n), float('nan'), dtype=torch.bfloat16,
+                       device=cuda)
+        got = _counted('planes_pair', lambda: cp.planes_pair(*args))
+        assert all(bool(torch.isfinite(o).all()) for o in got)
+        outs.append([o.clone() for o in got])
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    _close(outs[0], cp.planes_pair_plain(*args))
+
+
+def test_planes_pair_on_a_side_stream(cuda):
+    args = _unsorted(_maps(cuda, E=999, seed=15), 15)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        got = cp.planes_pair(*args)
+    torch.cuda.current_stream().wait_stream(s)
+    _close(got, cp.planes_pair_plain(*args))
+
+
+def test_planes_pair_never_synchronizes(cuda):
+    """The chain (binning, scan, scatter, both tile kernels) runs with no
+    host synchronize or read-back: under sync debug mode 'error' any
+    synchronizing call in the wrapper raises."""
+    args = _maps(cuda, E=3000, seed=16)
+    cp.planes_pair(*args)           # the library built, the shapes cached
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = cp.planes_pair(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _close(got, cp.planes_pair_plain(*args))
+
+
+def test_planes_pair_items_match_emulation(cuda):
+    """The work items K4's chain leaves on the card (first sorted
+    position, edges, bin, tile positions) are the emulation's, item for
+    item: unsorted edges across every border with a missing frame, maps
+    smaller and taller than the tiles, every edge in one bin, and the
+    probe's own inputs (micro_fused_v2)."""
+    from dpvo_torch.scripts import micro_fused_v2
+    cases = [_unsorted(_maps(cuda, E=2000, H=H, W=W, seed=H), H)
+             for H, W in ((10, 12), (120, 160), (200, 72))]
+    g9, f1, f2, jj, by1, bx1, by2, bx2 = _maps(cuda, E=3000, seed=13)
+    cases.append((g9, f1, f2, torch.full_like(jj, 1),
+                  torch.full_like(by1, 50), torch.full_like(bx1, 64),
+                  torch.full_like(by2, -3), torch.full_like(bx2, 30)))
+    cases.append(micro_fused_v2.inputs(cuda, 0.25, 0)['args'])
+    for args in cases:
+        work = _counted('planes_pair', lambda: cp.pair_work(*args))
+        F, H1, W1 = args[1].shape[:3]
+        ref = bin_work(*(t.cpu() for t in args[3:]), F, H1, W1,
+                       *args[2].shape[1:3])
+        for got, want in zip(work, ref):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('level', [1, 2])
+def test_planes_pair_launch_shape(cuda, level):
+    """Each tile kernel: one producer warp beside the consumers, the tile
+    of PAIR_TILE, its slots and barriers in dynamic shared memory, the grid
+    min(E, blocks per SM x SMs)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rows, warps, blocks, unit = cp.PAIR_TILE[level]
+    sh = cp.pair_shape(level, 1)
+    assert (sh['rows'], sh['warps'], sh['cap'], sh['unit']) == (
+        rows, warps, cp.PAIR_CAP, unit)
+    assert sh['threads'] == 32 * (warps + 1)
+    assert sh['smem'] == cp.pair_smem(level)
+    assert 1 <= sh['resident'] <= blocks
+    full = sh['resident'] * sms
+    for E in (1, 7, full - 1, full, full + 1, 43008):
+        assert cp.pair_shape(level, E)['grid'] == min(E, full), E
 
 
 def _dots_inputs(dev, E, W=384, seed=6):

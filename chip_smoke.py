@@ -14,7 +14,9 @@ Phases (any failure raises, so the exit code is non-zero):
      threads, dynamic shared memory, registers, blocks per SM and ring) of
      K2 for bf16 maps, of K5, K7 and K8 (both each) on the planes ring, of
      K4's two tile kernels (with their tiles' map rows, consumer warps and
-     edges per item at most) and of K6 dots;
+     edges per item at most), of K6 slab's tile kernel (its map rows, edges
+     per item, consumer warps, tile rows and m16 tiles per unit, m16 tiles
+     per pass) and of K6 dots;
   3. kernels vs plain, at the main paths' shapes (E = 49,152 edges, 36
      frames of 120x160 and 30x40 bf16 maps): K1 (plus the fast.yaml row
      layout, M = 48; the pixels per branch and level of its union-box rule,
@@ -55,7 +57,11 @@ Phases (any failure raises, so the exit code is non-zero):
      their rates; K4's work items and mean edges per item, read back from
      one call of its chain (corr_probes.pair_work) and checked: every
      edge in one item of at most PAIR_CAP, items in bin order, tiles
-     within their bounds, at most 1.0 GB of them per call.
+     within their bounds, at most 1.0 GB of them per call; K6 slab's
+     device time (back-to-back launches) and its share of the bound, and
+     its work items, read back likewise (corr_probes.slab_work) and
+     checked: every edge in one item of at most SLAB_TILE's cap, tiles of
+     at most its rows, at most 0.25 GB of them per call.
 The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
@@ -553,26 +559,21 @@ def small_cpu_vs_cuda(dev):
               f'launches {launches})', flush=True)
 
 
-def check_pair_items(work, E):
-    """K4's work items as its chain made them (corr_probes.pair_work), per
-    level: each of 1 .. PAIR_CAP edges, together every edge once, in
-    consecutive runs of the sorted edges, by bin; a tile of at most its
-    rows x the window's columns, no tile only for the last bin (the edges
-    that write zeros)."""
-    from dpvo_torch.ops import corr_probes as cp
-    for level, items in zip((1, 2), work):
-        first, n, b, pos = items.T
-        wx = cp.WX if level == 1 else cp.WX2
-        where = f'K4 level {level} items'
-        check(len(items) > 0 and int(first[0]) == 0 and
-              bool((first[1:] == first[:-1] + n[:-1]).all()) and
-              int(n.sum()) == E, f'{where}: do not cover the edges once')
-        check(bool(((n >= 1) & (n <= cp.PAIR_CAP)).all()),
-              f'{where}: an item holds 0 or more than {cp.PAIR_CAP} edges')
-        check(bool((b[1:] >= b[:-1]).all()), f'{where}: not in bin order')
-        check(bool(((pos >= 0) & (pos <= cp.PAIR_TILE[level][0] * wx)).all())
-              and bool((b[pos == 0] == b[-1]).all()),
-              f'{where}: a tile off its bounds')
+def check_items(where, items, E, cap, max_pos):
+    """A target-tile chain's work items as it made them (corr_probes.
+    pair_work, slab_work): each of 1 .. cap edges, together every edge
+    once, in consecutive runs of the sorted edges, by bin; a tile of at
+    most max_pos positions, no tile only for the last bin (the edges that
+    write zeros)."""
+    first, n, b, pos = items.T
+    check(len(items) > 0 and int(first[0]) == 0 and
+          bool((first[1:] == first[:-1] + n[:-1]).all()) and
+          int(n.sum()) == E, f'{where}: do not cover the edges once')
+    check(bool(((n >= 1) & (n <= cap)).all()),
+          f'{where}: an item holds 0 or more than {cap} edges')
+    check(bool((b[1:] >= b[:-1]).all()), f'{where}: not in bin order')
+    check(bool(((pos >= 0) & (pos <= max_pos)).all()) and
+          bool((b[pos == 0] == b[-1]).all()), f'{where}: a tile off its bounds')
 
 
 def probes():
@@ -607,7 +608,25 @@ def probes():
                   f'{pr["other_tb_per_s"]!r} TB/s in turns', flush=True)
             check(st['tile_bytes'] <= 1.0e9,
                   f'K4 stages {st["tile_bytes"]} B of tiles per call')
-            check_pair_items(res['pair_work'], res['E'])
+            for level, items in zip((1, 2), res['pair_work']):
+                wx = corr_probes.WX if level == 1 else corr_probes.WX2
+                check_items(f'K4 level {level} items', items, res['E'],
+                            corr_probes.PAIR_CAP,
+                            corr_probes.PAIR_TILE[level][0] * wx)
+        if mod is micro_corr_floor:
+            st, row = res['slab_stats'], res['variants']['slab']
+            rows, cap = corr_probes.SLAB_TILE[:2]
+            print(f'  K6 slab: device time {res["slab_device_ms"]!r} ms, '
+                  f'{row["bound_ms"] / res["slab_device_ms"]!r} of its bound '
+                  f'{row["bound_ms"]!r} ms ({row["ms"]!r} ms one launch '
+                  f'alone); from L2 per call: {st["items"]} work items, '
+                  f'{st["edges_per_item"]!r} edges per item; tiles '
+                  f'{st["tile_bytes"] / 1e9!r} GB + g rows '
+                  f'{st["g_bytes"] / 1e9!r} GB', flush=True)
+            check(st['tile_bytes'] <= 0.25e9,
+                  f'K6 slab stages {st["tile_bytes"]} B of tiles per call')
+            check_items('K6 slab items', res['slab_work'], res['E'], cap,
+                        rows * corr_probes.SLAB)
         if mod is micro_onepass_dma:
             pr = res['paired']['planes_first49_streams / planes_first49']
             print(f'  K7 from L2 per call: {res["copied"] / 1e9!r} GB, '
@@ -703,6 +722,19 @@ def main():
               f'map rows, {sh["warps"]} consumer warps, units of '
               f'{sh["unit"]} tile pairs, up to {sh["cap"]} edges per work '
               f'item')
+    sh = corr_probes.slab_shape(49152)
+    rows, cap, warps, blocks, *unit = corr_probes.SLAB_TILE
+    check(sh['smem'] == corr_probes.slab_smem() and
+          [sh[k] for k in ('rows', 'cap', 'warps', 'unit_rows', 'unit',
+                           'pass')] == [rows, cap, warps, *unit] and
+          1 <= sh['resident'] <= blocks, f'K6 slab launch shape {sh}')
+    print(f'  slab (K6) tiles at E = 49,152: grid {sh["grid"]}, '
+          f'{sh["threads"]} threads, {sh["smem"]} B of dynamic shared '
+          f'memory, {sh["regs"]} registers, {sh["resident"]} blocks per SM; '
+          f'tiles of up to {sh["rows"]} map rows, up to {sh["cap"]} edges '
+          f'per work item, {sh["warps"]} consumer warps, units of '
+          f'{sh["unit_rows"]} tile rows x up to {sh["unit"]} m16 tiles, '
+          f'passes of {sh["pass"]}')
     for key in ('dots', 'dots2'):
         sh = corr_probes.dots_shape(key, 49152)
         print(f'  K6 {key} at E = 49,152: grid {sh["grid"]}, '

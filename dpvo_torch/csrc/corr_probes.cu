@@ -7,13 +7,14 @@
 // plain PyTorch version of each instantiation).
 //
 // The TPU kernels they replace, all Pallas calls in the probe scripts:
-//   probe_pair_tiles<1>, <2> (with the binning kernels pair_bin_*)
+//   probe_pair_tiles<1>, <2> (with the binning kernels bin_*)
 //                           scripts/micro_fused_v2.py:_plane_kernel_k2 (K4)
 //   probe_planes_ring<kRollK5>
 //                           scripts/micro_fused_v2.py:_plane_kernel_roll (K5)
 //   probe_dots              scripts/micro_corr_floor.py:dot_kernel,
 //                           dot_kernel2 (K6)
-//   probe_slab              scripts/micro_corr_floor.py:fused_kernel (K6)
+//   probe_slab_tiles (with the binning kernels bin_*)
+//                           scripts/micro_corr_floor.py:fused_kernel (K6)
 //   probe_planes_ring<kFirst49>, <kFirst49S>
 //                           scripts/micro_onepass_dma.py:kernel (K7,
 //                           STREAMS=0 / 1)
@@ -75,26 +76,19 @@
 // by target tile on the device, and each tile's map rows are staged once
 // per work item of up to 64 edges (the note at its definition).
 //
-// probe_slab (K6 fused_kernel) runs on the tensor cores too (mma.sync
-// m16n8k16, bf16 in, f32 accumulate; the building blocks are in
-// mma_bf16.cuh, shared with K1's bf16 kernel), one block per edge, so the
-// arithmetic stays far below the memory time, and every byte goes through
-// a coalesced path:
-//   * the 9 g rows of an edge are staged once in shared memory and held by
-//     every warp as the A operand (rows 9-15 zero) in 32 registers;
-//   * the B operand, 8 window positions x 16 channels, is read straight
-//     from the channels-last map: each lane loads 16 contiguous bytes (8
-//     channels) of its position's row, and the channels are permuted
-//     identically in A and B so that one 16-byte load feeds two k-steps;
-//   * the 9 x N f32 result of an edge is staged in shared memory and the
-//     epilogue (bf16 rounding) writes it out contiguously.
+// probe_slab_tiles (K6 fused_kernel) takes the same binning one step
+// further: within a bin of one column base the edges are sorted by their
+// row base, so that for each map row of a tile the edges whose windows hold
+// it are one contiguous run, and the row's products are one small GEMM of
+// the run's flattened g rows (m16 tiles that may span two edges) with the
+// row's 16 positions (the note at its definition).
+//
 // Dropped, as TPU layout: the padded slabs and the phase-shifted copies of
 // the maps (positions outside the map read as zero, which is what the
 // padding held; a phase is bx + 4 * ph), the bit-packed SMEM scalar streams
 // (plain int32 arrays), the 32-edge sequential grid with its target-slab DMA
-// (one block per edge for probe_slab; persistent grids for the others), and
-// K4's off-diagonal products (each edge is dotted with its own window
-// only).
+// (persistent grids), and K4's off-diagonal products (each edge is dotted
+// with its own window only).
 //
 // Layouts (all contiguous): g (E, 9, 128) bf16, one row block per edge;
 // fmap1 (F, H1, W1, 128), fmap2 (F, H2, W2, 128) bf16; jj, by*, bx*, sh*
@@ -116,34 +110,10 @@
 
 namespace {
 
-using namespace corr_mma;   // GFrag, load_gfrag, tile_dot, stage_tile, ...
+using namespace corr_mma;   // GFrag, load_gfrag, mma_bf16, stage_b, ...
 using namespace corr_ring;  // mbarriers, bulk copies
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;   // probe_slab: one edge per block
 constexpr int kFirst = 49;              // K7 keeps 49 columns per level
-
-// A window of wx columns at (by, bx) of one frame; position q is row q / wx,
-// column q % wx. Positions outside the map (or a missing frame) read zero.
-struct Window {
-  const bf16* frame;
-  int H, W, by, bx, wx;
-  __device__ __forceinline__ const bf16* operator()(int q) const {
-    const int y = by + q / wx, x = bx + q % wx;
-    return (frame != nullptr && y >= 0 && y < H && x >= 0 && x < W)
-               ? frame + (static_cast<size_t>(y) * W + x) * kC
-               : nullptr;
-  }
-};
-
-// n (even) bf16 values val(0 .. n-1) to dst, two per 4-byte store
-template <class Val>
-__device__ __forceinline__ void store_bf16(bf16* dst, int n, int tid, int nthr,
-                                           Val val) {
-  for (int i = 2 * tid; i < n; i += 2 * nthr)
-    *reinterpret_cast<__nv_bfloat162*>(dst + i) =
-        __floats2bfloat162_rn(val(i), val(i + 1));
-}
 
 struct PlaneArgs {
   const bf16 *g, *fmap1, *fmap2;
@@ -474,30 +444,329 @@ probe_dots(const bf16* __restrict__ g, const bf16* __restrict__ win,
   }
 }
 
+// ---- the binning by target tile (K4, K6 slab) ----
+//
+// K4 and the slab bin their edges by target tile on the device, with one
+// chain of kernels on one stream and every count on the device:
+//   1. bin_count: each edge's key at each level (a BinLevel), and the keys'
+//      counts (atomics). A key is a fine bin inside a coarse bin (frame,
+//      row bin of by, exact bx); K4's fine bin is the coarse one, the
+//      slab's is the exact by inside it (kept bin-major, so that the sort
+//      leaves each coarse bin's edges ordered by by). An edge whose frame
+//      is out of range or whose window misses the map goes to the last
+//      coarse bin, whose items write zeros;
+//   2. bin_sums, bin_scan (one block per 1024 coarse bins): the exclusive
+//      scan of the coarse bins' counts, each block adding the sums of the
+//      blocks before it, the fine bins' first sorted positions, and the
+//      work items: a coarse bin of n edges is ceil(n / cap) items of at
+//      most cap edges, so that a skewed input still spreads;
+//   3. bin_scatter: each edge's (id, by) to its fine bin's next position;
+//   4. the tile kernel of each level (probe_pair_tiles<L>,
+//      probe_slab_tiles): a persistent grid claims the items with an
+//      atomic counter that the scan resets.
+
+constexpr int kScanThreads = 1024;
+// fine bins per coarse bin at most: an exact-by level's TY = R - WY + 1
+// for tiles of at most 32 rows and windows of at least 16
+constexpr int kMaxFine = 17;
+
+// One level's binning (the note above), in the caller's int32 scratch.
+struct BinLevel {
+  int* count;    // [nbins] edges per fine bin (zeroed before the count)
+  int* off;      // [nbins] first sorted position, then the scatter's cursor
+  int* key;      // [E] each edge's fine bin
+  int2* rec;     // [E] (edge, by) in bin order
+  int4* items;   // [E] (first sorted position, edges, coarse bin, tile
+                 // positions)
+  int2* part;    // [nblocks] edges and items of each scan block's bins
+  int* nitems;   // the number of items
+  int* claim;    // the tile kernel's count of claimed items
+  const int *jj, *by, *bx;   // jj nullptr: every edge on frame 0
+  int F, H, W, WY, WX;       // maps (F, H, W), windows WY x WX
+  int TY, NYB, NXB;          // window bases per row bin, row bins, columns
+  int G;                     // fine bins per coarse bin: 1, or TY (exact by)
+  int cap;                   // edges per item at most
+  int ncoarse, nblocks;      // coarse bins (the last writes zeros), scan
+                             // blocks
+  long long items_at, nitems_at;   // the words of items and nitems
+};
+
+// The levels of one chain (n = 1 or 2), launched together.
+struct BinLevels {
+  BinLevel l[2];
+  int n;
+};
+
+// Level b's shape for maps (F, H, W), windows WY x WX, tiles of at most R
+// map rows and items of at most cap edges: the row bin TY (R - WY + 1
+// bases per bin, so that a bin's windows span at most R rows; without
+// `exact`, a map of at most R rows is one bin, every base whose window
+// meets it, as only the in-map rows count), the coarse bins (frame, (by +
+// WY - 1) / TY, bx + WX - 1) and the zero bin after them, and with `exact`
+// TY fine bins (by + WY - 1) % TY per coarse bin. Returns the fine bins, or
+// -1 past int32.
+long long level_shape(BinLevel* b, int F, int H, int W, int WY, int WX,
+                      int R, int cap, bool exact) {
+  b->F = F;
+  b->H = H;
+  b->W = W;
+  b->WY = WY;
+  b->WX = WX;
+  b->cap = cap;
+  b->TY = H <= R && !exact ? H + WY - 1 : R - WY + 1;
+  b->NYB = (H + WY - 1 + b->TY - 1) / b->TY;
+  b->NXB = W + WX - 1;
+  b->G = exact ? b->TY : 1;
+  const long long nc = static_cast<long long>(F) * b->NYB * b->NXB + 1;
+  const long long n = nc * b->G;
+  if (b->G > kMaxFine || n >= (1ll << 31)) return -1;
+  b->ncoarse = static_cast<int>(nc);
+  return n;
+}
+
+// The tile of coarse bin z (not the zero bin) of a level for the window
+// bases of its fine rows kf .. kl (K4: 0 .. TY - 1, the whole bin): frame
+// j, the first window row ty0 and column bx of the bin's bases, and the
+// rows y0 .. y0 + rows - 1 and columns x0 .. x0 + nx - 1 of those windows
+// that lie in the map, which the tile kernel copies (rows, nx >= 1: the
+// bin's windows meet the map).
+struct BinRect {
+  int j, ty0, bx, y0, rows, x0, nx;
+};
+
+// the first window row of coarse bin z's bases
+__device__ __forceinline__ int bin_ty0(int z, int WY, int TY, int NYB,
+                                       int NXB) {
+  return (z / NXB % NYB) * TY - (WY - 1);
+}
+
+__device__ __forceinline__ BinRect bin_rect(int z, int WY, int WX, int TY,
+                                            int NYB, int NXB, int H, int W,
+                                            int kf, int kl) {
+  BinRect t;
+  const int r = z / NXB;
+  t.bx = z - r * NXB - (WX - 1);
+  t.ty0 = bin_ty0(z, WY, TY, NYB, NXB);
+  t.j = r / NYB;
+  t.y0 = max(t.ty0 + kf, 0);
+  t.rows = min(t.ty0 + kl + WY, H) - t.y0;
+  t.x0 = max(t.bx, 0);
+  t.nx = min(t.bx + WX, W) - t.x0;
+  return t;
+}
+
+// edge e's fine bin at level b
+__device__ __forceinline__ int bin_key(const BinLevel& b, int e) {
+  const int j = b.jj != nullptr ? b.jj[e] : 0;
+  const int by = b.by[e], bx = b.bx[e];
+  if (j < 0 || j >= b.F || by <= -b.WY || by >= b.H || bx <= -b.WX ||
+      bx >= b.W)
+    return (b.ncoarse - 1) * b.G;
+  const int y = by + b.WY - 1, r = y / b.TY;
+  return ((j * b.NYB + r) * b.NXB + bx + b.WX - 1) * b.G +
+         (b.G > 1 ? y - r * b.TY : 0);
+}
+
+__global__ void bin_count(const BinLevels L, int E) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < E;
+       e += gridDim.x * blockDim.x) {
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      if (l < L.n) {
+        const int k = bin_key(L.l[l], e);
+        L.l[l].key[e] = k;
+        atomicAdd(L.l[l].count + k, 1);
+      }
+    }
+  }
+}
+
+// The block's exclusive scan of v (kScanThreads threads); *total the sum.
+__device__ __forceinline__ int block_excl_scan(int v, int* tmp, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) tmp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = tmp[lane];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += y;
+    }
+    tmp[lane] = w;
+  }
+  __syncthreads();
+  const int out = x - v + (warp ? tmp[warp - 1] : 0);
+  *total = tmp[31];
+  __syncthreads();
+  return out;
+}
+
+// The scan's blocks: kScanThreads coarse bins each, those of level 0 first.
+__device__ __forceinline__ BinLevel scan_level(const BinLevels& L, int* blk) {
+  const int k = blockIdx.x;
+  *blk = k < L.l[0].nblocks ? k : k - L.l[0].nblocks;
+  return k < L.l[0].nblocks ? L.l[0] : L.l[1];
+}
+
+// The inclusive prefix sums pre[0 .. G - 1] of coarse bin i's fine
+// counts (zero past G, and for i past the bins), each count loaded at
+// once, unrolled over kMaxFine; returns the bin's edges.
+__device__ __forceinline__ int fine_prefix(const BinLevel& b, int i,
+                                           int (&pre)[kMaxFine]) {
+  int acc = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxFine; ++k) {
+    acc += k < b.G && i < b.ncoarse ? b.count[i * b.G + k] : 0;
+    pre[k] = acc;
+  }
+  return acc;
+}
+
+// per scan block: the edges and items of its coarse bins
+__global__ void __launch_bounds__(kScanThreads)
+bin_sums(const BinLevels L) {
+  __shared__ int tmp[32];
+  int blk;
+  const BinLevel b = scan_level(L, &blk);
+  const int i = blk * kScanThreads + threadIdx.x;
+  int pre[kMaxFine];
+  const int c = fine_prefix(b, i, pre);
+  int edges, items;
+  block_excl_scan(c, tmp, &edges);
+  block_excl_scan((c + b.cap - 1) / b.cap, tmp, &items);
+  if (threadIdx.x == 0) b.part[blk] = make_int2(edges, items);
+}
+
+// per scan block: the sums of the blocks before it, then its fine bins'
+// first sorted positions and its coarse bins' items
+__global__ void __launch_bounds__(kScanThreads)
+bin_scan(const BinLevels L) {
+  __shared__ int tmp[32];
+  int blk;
+  const BinLevel b = scan_level(L, &blk);
+  int pe = 0, pi = 0;
+  for (int k = threadIdx.x; k < blk; k += kScanThreads) {
+    const int2 q = b.part[k];
+    pe += q.x;
+    pi += q.y;
+  }
+  int before_edges, before_items, total_edges, total_items;
+  block_excl_scan(pe, tmp, &before_edges);
+  block_excl_scan(pi, tmp, &before_items);
+  const int i = blk * kScanThreads + threadIdx.x;
+  int pre[kMaxFine];
+  const int c = fine_prefix(b, i, pre);
+  const int eo = before_edges + block_excl_scan(c, tmp, &total_edges);
+  int io = before_items +
+           block_excl_scan((c + b.cap - 1) / b.cap, tmp, &total_items);
+  if (i < b.ncoarse) {
+#pragma unroll
+    for (int k = 0; k < kMaxFine; ++k)
+      if (k < b.G) b.off[i * b.G + k] = eo + (k ? pre[k - 1] : 0);
+  }
+  // each item with the positions of its tile (what it copies) where the
+  // bin fixes them (G = 1: the bin's tile); a level of exact-by fine bins
+  // copies the rows of each item's own edges' windows, and its tile kernel
+  // writes them (probe_slab_tiles)
+  int pos = 0;
+  if (b.G == 1 && c > 0 && i != b.ncoarse - 1) {
+    const BinRect t = bin_rect(i, b.WY, b.WX, b.TY, b.NYB, b.NXB, b.H, b.W,
+                               0, b.TY - 1);
+    pos = t.rows * t.nx;
+  }
+  for (int m = 0; m < c; m += b.cap)
+    b.items[io++] = make_int4(eo + m, min(b.cap, c - m), i, pos);
+  if (threadIdx.x == 0) {
+    if (blk == b.nblocks - 1) *b.nitems = before_items + total_items;
+    if (blk == 0) *b.claim = 0;
+  }
+}
+
+__global__ void bin_scatter(const BinLevels L, int E) {
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < E;
+       e += gridDim.x * blockDim.x) {
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      if (l < L.n) {
+        const int p = atomicAdd(L.l[l].off + L.l[l].key[e], 1);
+        L.l[l].rec[p] = make_int2(e, L.l[l].by[e]);
+      }
+    }
+  }
+}
+
+// The levels' binning in `scratch` (int32; nullptr: sizes only), their
+// shapes set (level_shape): the fine bins' counts of every level together
+// (zeroed by the launch), then per level items [4E], rec [2E], part
+// [2 nblocks], key [E], off [nbins], nitems, claim, padded to 16 bytes.
+// Returns the words needed, or -1 past int32.
+long long bin_plan(int E, BinLevels* L, int* scratch) {
+  auto round4 = [](long long w) { return (w + 3) / 4 * 4; };
+  long long nb[2] = {0, 0}, counts = 0;
+  for (int l = 0; l < L->n; ++l) {
+    nb[l] = static_cast<long long>(L->l[l].ncoarse) * L->l[l].G;
+    counts += nb[l];
+  }
+  long long at = round4(counts), cat = 0;
+  for (int l = 0; l < L->n; ++l) {
+    BinLevel& x = L->l[l];
+    x.nblocks = (x.ncoarse + kScanThreads - 1) / kScanThreads;
+    x.items_at = at;
+    x.nitems_at = at + 6ll * E + 2ll * x.nblocks + E + nb[l];
+    if (scratch != nullptr) {
+      x.count = scratch + cat;
+      x.items = reinterpret_cast<int4*>(scratch + at);
+      x.rec = reinterpret_cast<int2*>(scratch + at + 4ll * E);
+      x.part = reinterpret_cast<int2*>(scratch + at + 6ll * E);
+      x.key = scratch + at + 6ll * E + 2ll * x.nblocks;
+      x.off = x.key + E;
+      x.nitems = x.off + nb[l];
+      x.claim = x.nitems + 1;
+    }
+    cat += nb[l];
+    at += round4(7ll * E + 2ll * x.nblocks + nb[l] + 2);
+  }
+  return at < (1ll << 31) ? at : -1;
+}
+
+// The binning of L's levels (bin_plan's, in scratch) on stream s: the
+// counts zeroed, then bin_count, bin_sums, bin_scan, bin_scatter.
+cudaError_t launch_binning(const BinLevels& L, int E, cudaStream_t s) {
+  long long counts = 0;
+  for (int l = 0; l < L.n; ++l)
+    counts += static_cast<long long>(L.l[l].ncoarse) * L.l[l].G;
+  cudaError_t err = cudaMemsetAsync(
+      L.l[0].count, 0, sizeof(int) * static_cast<size_t>(counts), s);
+  if (err != cudaSuccess) return err;
+  const int blocks = std::min((E + 255) / 256, 4096);
+  const int scan_blocks = L.l[0].nblocks + (L.n > 1 ? L.l[1].nblocks : 0);
+  bin_count<<<blocks, 256, 0, s>>>(L, E);
+  bin_sums<<<scan_blocks, kScanThreads, 0, s>>>(L);
+  bin_scan<<<scan_blocks, kScanThreads, 0, s>>>(L);
+  bin_scatter<<<blocks, 256, 0, s>>>(L, E);
+  return cudaGetLastError();
+}
+
+
 // ---- K4 (planes_pair) as target tiles ----
 //
 // K2's planes with g rows g[e]: per edge its 12 x 24 window at (by1, bx1) of
-// fmap1 and its 10 x 16 window at (by2, bx2) of fmap2, frame jj. A chain
-// of kernels on one stream, every count on the device:
-//   1. pair_bin_count: each edge's bin at each level, (frame, row bin of
-//      by, exact bx), and the bins' counts (atomics). An edge whose frame is
-//      out of range or whose window misses the map goes to the last bin,
-//      whose items write zeros;
-//   2. pair_bin_sums, pair_bin_scan (one block per 1024 bins): the
-//      exclusive scan of the counts, each block adding the sums of the
-//      blocks before it, and the work items: a bin of n edges is
-//      ceil(n / kCap) items of at most kCap edges, so a skewed input still
-//      spreads;
-//   3. pair_bin_scatter: each edge's (id, by) to its bin's next position;
-//   4. probe_pair_tiles<1>, <2>: a persistent grid claims the items with an
-//      atomic counter; per item the producer warp copies the bin's tile
-//      (the in-map part of kRows map rows x the window's columns; lane r
-//      one row, one cp.async.bulk) and streams each edge's g rows into a
-//      ring of slots; the consumer warps take the edges' units of work
-//      (runs of kUnit tile pairs) in turn, load the edge's g rows once per
-//      unit, run its tiles on mma.sync with B read from the tile at the
-//      edge's own rows, and store each lane's two columns of a tile as one
-//      bf16 pair (a tile pair fills the 32-byte sectors).
+// fmap1 and its 10 x 16 window at (by2, bx2) of fmap2, frame jj. The binning
+// above at two levels, then probe_pair_tiles<1>, <2>: per item the producer
+// warp copies the bin's tile (the in-map part of kRows map rows x the
+// window's columns; lane r one row, one cp.async.bulk) and streams each
+// edge's g rows into a ring of slots; the consumer warps take the edges'
+// units of work (runs of kUnit tile pairs) in turn, load the edge's g rows
+// once per unit, run its tiles on mma.sync with B read from the tile at the
+// edge's own rows, and store each lane's two columns of a tile as one bf16
+// pair (a tile pair fills the 32-byte sectors).
 // Each map row of a tile is read from L2 once per item instead of once per
 // edge: at micro_fused_v2's sizes ~0.9 GB per call instead of 4.93.
 constexpr int kCap = 64;   // edges per work item at most (two per lane)
@@ -551,181 +820,6 @@ struct PairLevel {
   static_assert((kSmem + 1024) * T::kBlocksPerSm <= 228 * 1024,
                 "the blocks fit an SM (1 KB reserved per block)");
 };
-
-// One level's binning, in the caller's int32 scratch.
-struct PairBins {
-  int* count;    // [nbins] edges per bin (zeroed before the count)
-  int* off;      // [nbins] first sorted position, then the scatter's cursor
-  int* key;      // [E] each edge's bin
-  int2* rec;     // [E] (edge, by) in bin order
-  int4* items;   // [E] (first sorted position, edges, bin, tile positions)
-  int2* part;    // [nblocks] edges and items of each scan block's bins
-  int* nitems;   // the number of items
-  int* claim;    // the tile kernel's count of claimed items
-  const int *by, *bx;
-  int H, W, WY, WX, TY, NYB, NXB, nbins, nblocks;
-  long long items_at, nitems_at;   // the words of items and nitems
-};
-
-// The row bin TY of a level: a map of at most kRows rows is one bin (every
-// base whose window meets the map), else kRows - WY + 1 bases per bin; bins
-// are (frame, (by + WY - 1) / TY, bx + WX - 1), the last one the edges that
-// write zeros. Returns nbins, or -1 past int32.
-template <int L>
-long long pair_bins_shape(int F, int H, int W, int* TY, int* NYB, int* NXB) {
-  using P = PairLevel<L>;
-  constexpr int R = PairTile<L>::kRows;
-  *TY = H <= R ? H + P::kWY - 1 : R - P::kWY + 1;
-  *NYB = (H + P::kWY - 1 + *TY - 1) / *TY;
-  *NXB = W + P::kWX - 1;
-  const long long n = static_cast<long long>(F) * *NYB * *NXB + 1;
-  return n < (1ll << 31) ? n : -1;
-}
-
-// The tile of bin z (not the zero bin) of a level: frame j, the first
-// window row ty0 and column bx of its bases, and its rows y0 .. y0 + rows
-// - 1 and columns x0 .. x0 + nx - 1 that lie in the map, which the tile
-// kernel copies (rows, nx >= 1: a bin's windows meet the map).
-struct PairRect {
-  int j, ty0, bx, y0, rows, x0, nx;
-};
-
-__device__ __forceinline__ PairRect pair_rect(int z, int WY, int WX, int TY,
-                                              int NYB, int NXB, int H,
-                                              int W) {
-  PairRect t;
-  const int r = z / NXB;
-  t.bx = z - r * NXB - (WX - 1);
-  t.ty0 = (r % NYB) * TY - (WY - 1);
-  t.j = r / NYB;
-  t.y0 = max(t.ty0, 0);
-  t.rows = min(t.ty0 + TY + WY - 1, H) - t.y0;
-  t.x0 = max(t.bx, 0);
-  t.nx = min(t.bx + WX, W) - t.x0;
-  return t;
-}
-
-__device__ __forceinline__ int pair_bin(const PairBins& b, int j, int F,
-                                        int H, int W, int e) {
-  const int by = b.by[e], bx = b.bx[e];
-  if (j < 0 || j >= F || by <= -b.WY || by >= H || bx <= -b.WX || bx >= W)
-    return b.nbins - 1;
-  return (j * b.NYB + (by + b.WY - 1) / b.TY) * b.NXB + bx + b.WX - 1;
-}
-
-__global__ void pair_bin_count(const PairBins b1, const PairBins b2,
-                               const int* __restrict__ jj, int E, int F,
-                               int H1, int W1, int H2, int W2) {
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < E;
-       e += gridDim.x * blockDim.x) {
-    const int j = jj[e];
-    const int k1 = pair_bin(b1, j, F, H1, W1, e);
-    const int k2 = pair_bin(b2, j, F, H2, W2, e);
-    b1.key[e] = k1;
-    b2.key[e] = k2;
-    atomicAdd(b1.count + k1, 1);
-    atomicAdd(b2.count + k2, 1);
-  }
-}
-
-constexpr int kScanThreads = 1024;
-
-// The block's exclusive scan of v (kScanThreads threads); *total the sum.
-__device__ __forceinline__ int block_excl_scan(int v, int* tmp, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) tmp[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = tmp[lane];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += y;
-    }
-    tmp[lane] = w;
-  }
-  __syncthreads();
-  const int out = x - v + (warp ? tmp[warp - 1] : 0);
-  *total = tmp[31];
-  __syncthreads();
-  return out;
-}
-
-// The scan's blocks: kScanThreads bins each, those of level 1 first.
-__device__ __forceinline__ PairBins scan_level(const PairBins& b1,
-                                               const PairBins& b2, int* blk) {
-  const int k = blockIdx.x;
-  *blk = k < b1.nblocks ? k : k - b1.nblocks;
-  return k < b1.nblocks ? b1 : b2;
-}
-
-// per scan block: the edges and items of its bins
-__global__ void __launch_bounds__(kScanThreads)
-pair_bin_sums(const PairBins b1, const PairBins b2) {
-  __shared__ int tmp[32];
-  int blk;
-  const PairBins b = scan_level(b1, b2, &blk);
-  const int i = blk * kScanThreads + threadIdx.x;
-  const int c = i < b.nbins ? b.count[i] : 0;
-  int edges, items;
-  block_excl_scan(c, tmp, &edges);
-  block_excl_scan((c + kCap - 1) / kCap, tmp, &items);
-  if (threadIdx.x == 0) b.part[blk] = make_int2(edges, items);
-}
-
-// per scan block: the sums of the blocks before it, then its bins' first
-// sorted positions and items
-__global__ void __launch_bounds__(kScanThreads)
-pair_bin_scan(const PairBins b1, const PairBins b2) {
-  __shared__ int tmp[32];
-  int blk;
-  const PairBins b = scan_level(b1, b2, &blk);
-  int pe = 0, pi = 0;
-  for (int k = threadIdx.x; k < blk; k += kScanThreads) {
-    const int2 q = b.part[k];
-    pe += q.x;
-    pi += q.y;
-  }
-  int before_edges, before_items, total_edges, total_items;
-  block_excl_scan(pe, tmp, &before_edges);
-  block_excl_scan(pi, tmp, &before_items);
-  const int i = blk * kScanThreads + threadIdx.x;
-  const int c = i < b.nbins ? b.count[i] : 0;
-  const int eo = before_edges + block_excl_scan(c, tmp, &total_edges);
-  int io = before_items +
-           block_excl_scan((c + kCap - 1) / kCap, tmp, &total_items);
-  if (i < b.nbins) b.off[i] = eo;
-  // the positions of the bin's tile (what each of its items copies)
-  int pos = 0;
-  if (c > 0 && i != b.nbins - 1) {
-    const PairRect t =
-        pair_rect(i, b.WY, b.WX, b.TY, b.NYB, b.NXB, b.H, b.W);
-    pos = t.rows * t.nx;
-  }
-  for (int k = 0; k < c; k += kCap)
-    b.items[io++] = make_int4(eo + k, min(kCap, c - k), i, pos);
-  if (threadIdx.x == 0) {
-    if (blk == b.nblocks - 1) *b.nitems = before_items + total_items;
-    if (blk == 0) *b.claim = 0;
-  }
-}
-
-__global__ void pair_bin_scatter(const PairBins b1, const PairBins b2,
-                                 int E) {
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < E;
-       e += gridDim.x * blockDim.x) {
-    const int p1 = atomicAdd(b1.off + b1.key[e], 1);
-    b1.rec[p1] = make_int2(e, b1.by[e]);
-    const int p2 = atomicAdd(b2.off + b2.key[e], 1);
-    b2.rec[p2] = make_int2(e, b2.by[e]);
-  }
-}
 
 struct PairTileArgs {
   const bf16 *g, *fmap;
@@ -827,9 +921,10 @@ probe_pair_tiles(const PairTileArgs a) {
       const int2 r1 =
           lane + 32 < item.y ? a.rec[item.x + lane + 32] : make_int2(0, 0);
       const bool tiled = live && item.z != a.zero;
-      PairRect t{0, 0, 0, 0, 0, 0, 0};
+      BinRect t{0, 0, 0, 0, 0, 0, 0};
       if (tiled)
-        t = pair_rect(item.z, WY, WX, a.TY, a.NYB, a.NXB, a.H, a.W);
+        t = bin_rect(item.z, WY, WX, a.TY, a.NYB, a.NXB, a.H, a.W, 0,
+                     a.TY - 1);
       const int j = t.j, bx = t.bx, y0 = t.y0, rows = t.rows, x0 = t.x0,
                 nx = t.nx;
       mbar_wait(empty, (n & 1) ^ 1);
@@ -934,43 +1029,16 @@ struct PairTileKernel {
   static constexpr int kBlocksPerSm = PairTile<L>::kBlocksPerSm;
 };
 
-// The two levels' binning in `scratch` (int32; nullptr: sizes only):
-// count1, count2 (together, zeroed by the launch), then per level items
-// [4E], rec [2E], part [2 nblocks], key [E], off [nbins], nitems, claim,
-// padded to 16 bytes. Returns the words needed, or -1 past int32.
+// K4's two levels (bin_plan, in scratch or sizes only with nullptr).
 long long pair_plan(int E, int F, int H1, int W1, int H2, int W2,
-                    int* scratch, PairBins* b) {
-  const long long n1 = pair_bins_shape<1>(F, H1, W1, &b[0].TY, &b[0].NYB,
-                                          &b[0].NXB);
-  const long long n2 = pair_bins_shape<2>(F, H2, W2, &b[1].TY, &b[1].NYB,
-                                          &b[1].NXB);
-  if (n1 < 0 || n2 < 0) return -1;
-  auto round4 = [](long long w) { return (w + 3) / 4 * 4; };
-  long long at = round4(n1 + n2);
-  const long long nb[2] = {n1, n2};
-  for (int l = 0; l < 2; ++l) {
-    PairBins& x = b[l];
-    x.nbins = static_cast<int>(nb[l]);
-    x.nblocks = static_cast<int>((nb[l] + kScanThreads - 1) / kScanThreads);
-    x.WY = l ? PairLevel<2>::kWY : PairLevel<1>::kWY;
-    x.WX = l ? PairLevel<2>::kWX : PairLevel<1>::kWX;
-    x.H = l ? H2 : H1;
-    x.W = l ? W2 : W1;
-    x.items_at = at;
-    x.nitems_at = at + 6ll * E + 2ll * x.nblocks + E + nb[l];
-    if (scratch != nullptr) {
-      x.count = scratch + (l ? n1 : 0);
-      x.items = reinterpret_cast<int4*>(scratch + at);
-      x.rec = reinterpret_cast<int2*>(scratch + at + 4ll * E);
-      x.part = reinterpret_cast<int2*>(scratch + at + 6ll * E);
-      x.key = scratch + at + 6ll * E + 2ll * x.nblocks;
-      x.off = x.key + E;
-      x.nitems = x.off + nb[l];
-      x.claim = x.nitems + 1;
-    }
-    at += round4(7ll * E + 2ll * x.nblocks + nb[l] + 2);
-  }
-  return at < (1ll << 31) ? at : -1;
+                    int* scratch, BinLevels* L) {
+  L->n = 2;
+  if (level_shape(&L->l[0], F, H1, W1, PairLevel<1>::kWY, PairLevel<1>::kWX,
+                  PairTile<1>::kRows, kCap, false) < 0 ||
+      level_shape(&L->l[1], F, H2, W2, PairLevel<2>::kWY, PairLevel<2>::kWX,
+                  PairTile<2>::kRows, kCap, false) < 0)
+    return -1;
+  return bin_plan(E, L, scratch);
 }
 
 template <int L>
@@ -981,7 +1049,7 @@ cudaError_t pair_tiles_shape(int E, int device, RingShape* sh) {
 }
 
 template <int L>
-cudaError_t launch_pair_tiles(const PairBins& b, const bf16* g,
+cudaError_t launch_pair_tiles(const BinLevel& b, const bf16* g,
                               const bf16* fmap, bf16* out, int E, int F,
                               int H, int W, int device, cudaStream_t s) {
   RingShape sh;
@@ -989,37 +1057,419 @@ cudaError_t launch_pair_tiles(const PairBins& b, const bf16* g,
   if (err != cudaSuccess) return err;
   const PairTileArgs a{g,     fmap, out,  b.items, b.nitems, b.claim,
                        b.rec, F,    H,    W,       b.TY,     b.NYB,
-                       b.NXB, b.nbins - 1};
+                       b.NXB, b.ncoarse - 1};
   probe_pair_tiles<L><<<sh.grid, sh.threads, sh.smem, s>>>(a);
   return cudaGetLastError();
 }
 
-// K6 fused_kernel: one resident map (H, W, 128), a 16 x 16 window per edge
-// at (by[e], bx[e]). Out (E, 9, 256) bf16.
-constexpr int kSlab = 16;
+// ---- K6 fused_kernel (slab) as target tiles over by-sorted edges ----
+//
+// One resident map (H, W, 128), a 16 x 16 window per edge at (by[e], bx[e]);
+// out[e, p, q] = g[e, p] . map[by + q / 16, bx + q % 16], (E, 9, 256) bf16,
+// zero outside the map. The binning above at one level of exact-by fine
+// bins, so that an item's edges share bx and are sorted by by; then
+// probe_slab_tiles, a persistent grid that claims the items:
+//   * the producer warp copies the item's in-map tile rows (the map rows of
+//     its edges' windows, at most kRows; lane r one 4 KB row, one
+//     cp.async.bulk) and its edges' g rows one after another (a flattened
+//     stage of 9 rows of 256 B per edge), and writes the (edge, by) of each
+//     edge and, per group of kUnitRows tile rows y (one lane each), the run
+//     lo .. hi - 1 of edges whose windows hold one of them (by <= y <= by
+//     + 15: one run, as by is sorted) and the units of work it makes. Before
+//     it waits for the consumers to free the stage it has claimed the next
+//     item and asked L2 to prefetch its g rows;
+//   * a group's products are one GEMM: A the run's flattened g rows lo * 9
+//     .. hi * 9 - 1 in m16 tiles (a tile may span two edges), B the rows'
+//     16 positions each (two n8 tiles a row), C row (e, p) of tile row y
+//     exactly out[e, p, (y - by_e) * 16 ..] (32 contiguous bytes, one
+//     sector written by 4 lanes), kept where 0 <= y - by_e <= 15. A unit is
+//     a near-equal share (at most kUnit m-tiles) of a group's m-tiles; the
+//     consumer warps claim units with a shared counter, load the group's B
+//     once per unit and run its m-tiles kPass at a time, 2 x kUnitRows x
+//     kPass independent mma chains in flight, then drop C rows past the
+//     unit;
+//   * tile rows outside the map are written as zeros, and columns outside
+//     it (the same for every edge of an item, as bx is) are zero in the
+//     tile, so that their products are. Edges whose windows miss the map
+//     (the zero bin) write zeros.
+// Each edge's output row is written once: its 16 window rows lie in the
+// item's tile rows, and each group's run holds the edge once. The edges of
+// a coarse bin past kCap split into further items; with random bases an
+// item degenerates to one edge, and stays exact.
+constexpr int kSlab = 16;                 // the 16 x 16 windows
+constexpr int kSlabN = kSlab * kSlab;     // positions per edge
 
-__global__ void __launch_bounds__(kThreads)
-probe_slab(const bf16* __restrict__ g, const bf16* __restrict__ fmap,
-           const int* __restrict__ by, const int* __restrict__ bx,
-           bf16* __restrict__ out, int H, int W) {
-  constexpr int N = kSlab * kSlab;
-  __shared__ uint4 s_g[kP2 * kRowU4];
-  __shared__ float s_p[kP2 * N];
-  const int e = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int grp = (tid & 31) >> 2;
-  stage_g(g + static_cast<size_t>(e) * kP2 * kC, s_g, tid, kThreads);
-  __syncthreads();
-  const GFrag a = load_gfrag(s_g);
-  const Window w{fmap, H, W, by[e], bx[e], kSlab};
-  for (int tile = tid / 32; tile < N / 8; tile += kWarps) {
-    float d[4];
-    tile_dot(a, w(tile * 8 + grp), d);
-    stage_tile(d, s_p, N, tile * 8);
+// The tile: at most kRows map rows (a row bin of kRows - 15 window bases),
+// at most kCap edges per item (their g rows staged beside the tile),
+// kWarps consumer warps (+ 1 producer), the blocks asked for on each SM (at
+// most what fits), the tile rows of a unit (sharing its A loads), the m16
+// tiles of a unit at most and of one pass (its independent chains: 2 n8
+// tiles of each row). Chosen by a sweep (dpvo_torch/scripts/ring_sweep.py,
+// PERF.md section 6): small tiles, so that two blocks fit an SM and one
+// block's copies overlap the other's products (an item's stage is freed
+// only when all its units are done), beat larger items with one block.
+struct SlabTile {  // slab
+  static constexpr int kRows = 18, kCap = 16, kWarps = 5, kBlocksPerSm = 2,
+                       kUnitRows = 2, kUnit = 12, kPass = 2;
+};
+
+struct SlabGeom {
+  using T = SlabTile;
+  static constexpr int kTileBytes = T::kRows * kSlab * kRowBytes;
+  static constexpr int kStageRows = T::kCap * kP2;   // flattened g rows
+  // dynamic shared memory: the tile, the g stage, (edge, by) per edge
+  // (int2), per row group (lo, hi, first unit, end unit) (int4), the item
+  // (2 x int4), the units' claim counter (padded to 16 bytes), the
+  // barriers full, empty
+  static constexpr int kSmem = kTileBytes + kStageRows * kRowBytes +
+                               8 * T::kCap + 16 * T::kRows + 32 + 16 + 16;
+  static constexpr int kThreads = 32 * (T::kWarps + 1);
+  static_assert(T::kRows > kSlab && T::kRows <= 32,
+                "a window fits the tile; one producer lane per tile row");
+  static_assert(T::kCap >= 2 && T::kCap <= 64 && T::kCap % 2 == 0,
+                "two records a lane; the row table 16-byte aligned");
+  static_assert(T::kUnitRows >= 1 && T::kUnitRows <= 2 &&
+                    T::kUnit >= T::kPass && T::kPass >= 1 && T::kPass <= 4,
+                "units of 1-2 rows and of passes of 1-4 m-tiles");
+  static_assert((kSmem + 1024) * T::kBlocksPerSm <= 228 * 1024,
+                "the blocks fit an SM (1 KB reserved per block)");
+};
+
+struct SlabArgs {
+  const bf16 *g, *fmap;
+  bf16* out;
+  int4* items;   // each item's tile positions written back (.w)
+  const int* nitems;
+  int* claim;
+  const int2* rec;
+  int H, W, TY, NYB, NXB, zero;   // zero: the bin that writes zeros
+};
+
+// Chunks 2h and 2h + 1 (16-byte words) of this lane's channel row `row`,
+// read in stage_b's order (odd lane groups xor-swapped, so that the groups
+// of neighbouring rows read different banks) and swapped back.
+__device__ __forceinline__ void load_chunks(const uint4* row, int h, int sw,
+                                            uint4& c0, uint4& c1) {
+  const int t = threadIdx.x & 3;
+  const uint4 r0 = row[4 * ((2 * h) ^ sw) + t];
+  const uint4 r1 = row[4 * ((2 * h + 1) ^ sw) + t];
+  c0 = sw ? r1 : r0;
+  c1 = sw ? r0 : r1;
+}
+
+// One pass: M m-tiles of flattened g rows f .. f + 16 M - 1 (stage rows
+// past the stage clamped: their C rows are dropped) times B of the unit's
+// tile rows (b[r][n]: n8 tile n of row y0 + r, positions 8n + grp), then
+// this lane's C rows below f_stop stored where their edge's window holds
+// the row: the products for a row in the map (in[r]; its columns outside
+// the map are zero in the tile), else zeros.
+template <int M>
+__device__ __forceinline__ void slab_pass(
+    const uint4* stage, const uint4 (&b)[SlabTile::kUnitRows][2][kChunks],
+    int f, int f_stop, int y0, const bool (&in)[SlabTile::kUnitRows],
+    const int2* s_rec, bf16* out) {
+  constexpr int K = SlabTile::kUnitRows;
+  constexpr int kLast = SlabGeom::kStageRows - 1;
+  const int lane = threadIdx.x & 31, grp = lane >> 2, t = lane & 3;
+  const int sw = grp & 1;
+  float d[M][K][2][4];
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int r = 0; r < K; ++r)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        d[m][r][n][0] = d[m][r][n][1] = d[m][r][n][2] = d[m][r][n][3] = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint4 a[M][2][2];   // [m-tile][row grp, grp + 8][chunk 2h, 2h + 1]
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        load_chunks(stage + min(f + 16 * m + 8 * i + grp, kLast) * kRowU4,
+                    h, sw, a[m][i][0], a[m][i][1]);
+    // k-step by k-step, so that the 2 K M chains' mma interleave
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+#pragma unroll
+        for (int r = 0; r < K; ++r)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mma_bf16(d[m][r][n], a[m][0][c].x, a[m][1][c].x, a[m][0][c].y,
+                     a[m][1][c].y, b[r][n][2 * h + c].x, b[r][n][2 * h + c].y);
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+#pragma unroll
+        for (int r = 0; r < K; ++r)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mma_bf16(d[m][r][n], a[m][0][c].z, a[m][1][c].z, a[m][0][c].w,
+                     a[m][1][c].w, b[r][n][2 * h + c].z, b[r][n][2 * h + c].w);
+    }
+  }
+  // the stores: a C row's 16 columns are held 2 + 2 per lane of a quad
+  // (columns 2t, 2t + 1 of each n8 tile); two xor shuffles give lane t the
+  // columns 4t .. 4t + 3, so that the quad writes the row's 32 bytes as one
+  // sector with one 8-byte store each
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int fr = f + 16 * m + 8 * i + grp;
+      const int k = fr / kP2, p = fr - kP2 * k;
+      const int2 eb = s_rec[min(k, SlabTile::kCap - 1)];
+      bf16* o = out + (static_cast<size_t>(eb.x) * kP2 + p) * kSlabN + 4 * t;
+#pragma unroll
+      for (int r = 0; r < K; ++r) {
+        const uint32_t av =
+            in[r] ? planes_ring::pack_bf16(d[m][r][0][2 * i],
+                                           d[m][r][0][2 * i + 1])
+                  : 0u;
+        const uint32_t bv =
+            in[r] ? planes_ring::pack_bf16(d[m][r][1][2 * i],
+                                           d[m][r][1][2 * i + 1])
+                  : 0u;
+        // lanes 0, 1 keep tile 0's columns, 2, 3 tile 1's: (lo, hi) =
+        // the columns 2t', 2t' + 1 of lanes t' = t & 1 and (t & 1) + 2
+        const uint32_t keep = t < 2 ? av : bv;
+        const uint32_t got =
+            __shfl_xor_sync(0xffffffffu, t < 2 ? bv : av, 2);
+        const uint32_t lo = t < 2 ? keep : got, hi = t < 2 ? got : keep;
+        const uint32_t x = __shfl_xor_sync(0xffffffffu, t & 1 ? lo : hi, 1);
+        const int q = y0 + r - eb.y;   // the edge's window row
+        if (fr < f_stop && q >= 0 && q < kSlab)
+          *reinterpret_cast<uint2*>(o + q * kSlab) =
+              t & 1 ? make_uint2(x, hi) : make_uint2(lo, x);
+      }
+    }
+}
+
+// the pass of the unit's last m < kPass m-tiles
+template <int M>
+__device__ __forceinline__ void slab_tail(
+    int m, const uint4* stage,
+    const uint4 (&b)[SlabTile::kUnitRows][2][kChunks], int f, int f_stop,
+    int y0, const bool (&in)[SlabTile::kUnitRows], const int2* s_rec,
+    bf16* out) {
+  if constexpr (M >= 1) {
+    if (m == M)
+      slab_pass<M>(stage, b, f, f_stop, y0, in, s_rec, out);
+    else
+      slab_tail<M - 1>(m, stage, b, f, f_stop, y0, in, s_rec, out);
+  }
+}
+
+// The slab's planes, item by item (the note above). The item's tile holds
+// map rows y0 .. y0 + rows - 1 (its in-map rows) at smem rows 0 .. rows -
+// 1, columns bx .. bx + 15 at 0 .. 15, those outside the map zeroed by the
+// producer; stale bytes (stage rows past the item's edges) reach only C
+// rows that are dropped.
+__global__ void __launch_bounds__(SlabGeom::kThreads,
+                                  SlabTile::kBlocksPerSm)
+probe_slab_tiles(const SlabArgs a) {
+  using T = SlabTile;
+  constexpr int nw = T::kWarps, R = T::kRows, K = T::kUnitRows;
+  extern __shared__ __align__(128) uint4 smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  const uint4* stage =
+      reinterpret_cast<const uint4*>(base + SlabGeom::kTileBytes);
+  int2* s_rec = reinterpret_cast<int2*>(
+      base + SlabGeom::kTileBytes + SlabGeom::kStageRows * kRowBytes);
+  int4* s_rows = reinterpret_cast<int4*>(s_rec + T::kCap);
+  int4* s_item = s_rows + R;
+  int* s_next = reinterpret_cast<int*>(s_item + 2);   // units claimed
+  const uint32_t tile0 = smem_u32(smem);
+  const uint32_t stage0 = tile0 + SlabGeom::kTileBytes;
+  const uint32_t full = smem_u32(s_item + 3), empty = full + 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(full, 1);
+    mbar_init(empty, nw);
+    mbar_fence_init();
   }
   __syncthreads();
-  store_bf16(out + static_cast<size_t>(e) * kP2 * N, kP2 * N, tid, kThreads,
-             [&](int i) { return s_p[i]; });
+
+  if (warp == nw) {  // the producer
+    const int nitems = *a.nitems;
+    for (int n = 0;; ++n) {
+      int it = 0;
+      if (lane == 0) it = atomicAdd(a.claim, 1);
+      it = __shfl_sync(0xffffffffu, it, 0);
+      const bool live = it < nitems;
+      const int4 item = live ? a.items[it] : make_int4(0, -1, a.zero, 0);
+      const int ne = max(item.y, 0);
+      // lane k holds the item's records k and k + 32
+      const int2 r0 = lane < ne ? a.rec[item.x + lane] : make_int2(0, 0);
+      const int2 r1 = T::kCap > 32 && lane + 32 < ne
+                          ? a.rec[item.x + lane + 32]
+                          : make_int2(0, 0);
+      const bool tiled = live && item.z != a.zero;
+      if (tiled) {   // its g rows towards L2 while the stage is in use
+        if (lane < ne)
+          bulk_prefetch_l2(a.g + static_cast<size_t>(r0.x) * kP2 * kC,
+                           kGBytes);
+        if (T::kCap > 32 && lane + 32 < ne)
+          bulk_prefetch_l2(a.g + static_cast<size_t>(r1.x) * kP2 * kC,
+                           kGBytes);
+      }
+      // the window rows by_first .. by_last + 15 of the item; lane j the
+      // row group y = by_first + K j .. + K - 1, its edges lo .. hi - 1
+      const int last = max(ne - 1, 0);
+      const int by_first = __shfl_sync(0xffffffffu, r0.y, 0);
+      const int by_last =
+          __shfl_sync(0xffffffffu, last < 32 ? r0.y : r1.y, last & 31);
+      BinRect t{0, 0, 0, 0, 0, 0, 0};
+      if (tiled) {
+        const int ty0 = bin_ty0(item.z, kSlab, a.TY, a.NYB, a.NXB);
+        t = bin_rect(item.z, kSlab, kSlab, a.TY, a.NYB, a.NXB, a.H, a.W,
+                     by_first - ty0, by_last - ty0);
+      }
+      const int y = by_first + K * lane;
+      int lo = 0, hi = 0;
+      for (int k = 0; k < ne; ++k) {
+        const int byk =
+            __shfl_sync(0xffffffffu, k < 32 ? r0.y : r1.y, k & 31);
+        lo += byk < y - (kSlab - 1);
+        hi += byk <= y + K - 1;
+      }
+      const bool group = tiled && y <= by_last + kSlab - 1;
+      const int mt = (9 * (hi - lo) + 15) / 16;
+      const int units = group ? (mt + T::kUnit - 1) / T::kUnit : 0;
+      int uend = units;
+#pragma unroll
+      for (int dd = 1; dd < 32; dd <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, uend, dd);
+        if (lane >= dd) uend += v;
+      }
+      const int total = __shfl_sync(0xffffffffu, uend, 31);
+      if (lane == 0 && live)   // the positions its tile copies
+        a.items[it].w = t.rows * t.nx;
+      mbar_wait(empty, (n & 1) ^ 1);
+      if (lane < ne) s_rec[lane] = r0;
+      if (T::kCap > 32 && lane + 32 < ne) s_rec[lane + 32] = r1;
+      if (lane < R) s_rows[lane] = make_int4(lo, hi, uend - units, uend);
+      if (tiled && t.nx < kSlab) {   // the tile's columns outside the map
+        const int c0 = t.x0 - t.bx, nz = (kSlab - t.nx) * kRowU4;
+        for (int w = lane; w < t.rows * nz; w += 32) {
+          const int row = w / nz, c = (w - row * nz) / kRowU4;
+          smem[(row * kSlab + (c < c0 ? c : c + t.nx)) * kRowU4 +
+               w % kRowU4] = make_uint4(0, 0, 0, 0);
+        }
+      }
+      if (lane == 0) {
+        s_item[0] = make_int4(item.y, by_first, t.bx, tiled);
+        s_item[1] = make_int4(t.y0, t.rows, total, 0);
+        *s_next = 0;
+      }
+      __threadfence_block();
+      __syncwarp();
+      const uint32_t bytes =
+          tiled ? (t.rows * t.nx + ne * kP2) * kRowBytes : 0u;
+      if (lane == 0) {
+        if (bytes)
+          mbar_expect_tx(full, bytes);
+        else
+          mbar_arrive(full);
+      }
+      __syncwarp();
+      if (tiled) {
+        if (lane < t.rows)
+          bulk_load(tile0 + (lane * kSlab + t.x0 - t.bx) * kRowBytes,
+                    a.fmap + (static_cast<size_t>(t.y0 + lane) * a.W + t.x0) *
+                                 kC,
+                    t.nx * kRowBytes, full);
+        if (lane < ne)
+          bulk_load(stage0 + lane * kGBytes,
+                    a.g + static_cast<size_t>(r0.x) * kP2 * kC, kGBytes,
+                    full);
+        if (T::kCap > 32 && lane + 32 < ne)
+          bulk_load(stage0 + (lane + 32) * kGBytes,
+                    a.g + static_cast<size_t>(r1.x) * kP2 * kC, kGBytes,
+                    full);
+      }
+      if (!live) break;
+    }
+    return;
+  }
+
+  // the consumers: each warp claims the item's units until none is left
+  const int grp = lane >> 2, sw = grp & 1;
+  for (int n = 0;; ++n) {
+    mbar_wait(full, n & 1);
+    const int4 h0 = s_item[0];   // (edges or -1, by_first, bx, tiled)
+    const int4 h1 = s_item[1];   // (y0, in-map rows, units, 0)
+    if (h0.x < 0) break;
+    if (!h0.w) {   // the zero bin: every entry of its edges zero
+      constexpr int kWords = kP2 * kSlabN / 8;   // 16-byte words per edge
+      for (int i = threadIdx.x; i < h0.x * kWords; i += 32 * nw)
+        reinterpret_cast<uint4*>(a.out)[static_cast<size_t>(
+                                            s_rec[i / kWords].x) *
+                                            kWords +
+                                        i % kWords] = make_uint4(0, 0, 0, 0);
+    } else {
+      const int uend = s_rows[lane < R ? lane : R - 1].w;
+      for (;;) {
+        int u = 0;
+        if (lane == 0) u = atomicAdd(s_next, 1);
+        u = __shfl_sync(0xffffffffu, u, 0);
+        if (u >= h1.z) break;
+        const int j = __popc(__ballot_sync(0xffffffffu, lane < R && uend <= u));
+        const int4 rw = s_rows[j];   // (lo, hi, first unit, end unit)
+        // the unit's near-equal share of the group's m-tiles
+        const int mt = (9 * (rw.y - rw.x) + 15) / 16, nu = rw.w - rw.z;
+        const int k = u - rw.z;
+        int f = rw.x * kP2 + 16 * (k * mt / nu);
+        const int f_stop =
+            min(rw.x * kP2 + 16 * ((k + 1) * mt / nu), rw.y * kP2);
+        const int y0 = h0.y + K * j;
+        uint4 b[K][2][kChunks];
+        bool in[K];
+#pragma unroll
+        for (int r = 0; r < K; ++r) {
+          const int s = y0 + r - h1.x;   // the row in the tile
+          in[r] = s >= 0 && s < h1.y;
+          const uint4* rb = smem + ((in[r] ? s : 0) * kSlab + grp) * kRowU4;
+          stage_b(rb, sw, b[r][0]);
+          stage_b(rb + 8 * kRowU4, sw, b[r][1]);
+        }
+        for (; f_stop - f > 16 * (T::kPass - 1); f += 16 * T::kPass)
+          slab_pass<T::kPass>(stage, b, f, f_stop, y0, in, s_rec, a.out);
+        if (f < f_stop)
+          slab_tail<T::kPass - 1>((f_stop - f + 15) / 16, stage, b, f,
+                                  f_stop, y0, in, s_rec, a.out);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty);
+  }
+}
+
+// probe_slab_tiles for ring_shape
+struct SlabTileKernel {
+  static const void* fn() {
+    return reinterpret_cast<const void*>(probe_slab_tiles);
+  }
+  static constexpr int kThreads = SlabGeom::kThreads;
+  static constexpr int kSmem = SlabGeom::kSmem;
+  static constexpr int kBlocksPerSm = SlabTile::kBlocksPerSm;
+};
+
+// The slab's one level (bin_plan, in scratch or sizes only with nullptr).
+long long slab_plan(int E, int H, int W, int* scratch, BinLevels* L) {
+  L->n = 1;
+  if (level_shape(&L->l[0], 1, H, W, kSlab, kSlab, SlabTile::kRows,
+                  SlabTile::kCap, true) < 0)
+    return -1;
+  return bin_plan(E, L, scratch);
+}
+
+cudaError_t slab_tiles_shape(int E, int device, RingShape* sh) {
+  const cudaError_t err = ring_shape<SlabTileKernel>(E, device, sh);
+  if (err != cudaSuccess) cudaGetLastError();  // see dots_setup
+  return err;
 }
 
 PlaneArgs plane_args(const void* g, const void* fmap1, const void* fmap2,
@@ -1142,10 +1592,10 @@ cudaError_t launch_ring(const PlaneArgs& p, int device, cudaStream_t s) {
 // launches nothing.
 
 // K4. plane1 (E, 9, 288), plane2 (E, 9, 160) bf16: the chain of the
-// target-tile design (pair_bin_count, pair_bin_sums, pair_bin_scan,
-// pair_bin_scatter, probe_pair_tiles<1>, <2>) on `stream`, no synchronize. scratch: int32 of
-// at least probe_planes_pair_scratch(E, F, H1, W1, H2, W2) words, any
-// contents (the launch zeroes what it must).
+// target-tile design (bin_count, bin_sums, bin_scan, bin_scatter at both
+// levels, probe_pair_tiles<1>, <2>) on `stream`, no synchronize. scratch:
+// int32 of at least probe_planes_pair_scratch(E, F, H1, W1, H2, W2) words,
+// any contents (the launch zeroes what it must).
 extern "C" int probe_planes_pair_launch(
     const void* g, const void* fmap1, const void* fmap2, const void* jj,
     const void* by1, const void* bx1, const void* by2, const void* bx2,
@@ -1153,33 +1603,24 @@ extern "C" int probe_planes_pair_launch(
     int H2, int W2, int device, void* stream) {
   if (E <= 0) return 0;
   if (const int err = set_device(device)) return err;
-  PairBins b[2];
-  if (pair_plan(E, F, H1, W1, H2, W2, static_cast<int*>(scratch), b) < 0)
+  BinLevels L;
+  if (pair_plan(E, F, H1, W1, H2, W2, static_cast<int*>(scratch), &L) < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  b[0].by = static_cast<const int*>(by1);
-  b[0].bx = static_cast<const int*>(bx1);
-  b[1].by = static_cast<const int*>(by2);
-  b[1].bx = static_cast<const int*>(bx2);
+  const void* bases[2][2] = {{by1, bx1}, {by2, bx2}};
+  for (int l = 0; l < 2; ++l) {
+    L.l[l].jj = static_cast<const int*>(jj);
+    L.l[l].by = static_cast<const int*>(bases[l][0]);
+    L.l[l].bx = static_cast<const int*>(bases[l][1]);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(
-      b[0].count, 0, sizeof(int) * (static_cast<size_t>(b[0].nbins) +
-                                    b[1].nbins), s);
+  cudaError_t err = launch_binning(L, E, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = std::min((E + 255) / 256, 4096);
-  pair_bin_count<<<blocks, 256, 0, s>>>(b[0], b[1],
-                                         static_cast<const int*>(jj), E, F,
-                                         H1, W1, H2, W2);
-  const int scan_blocks = b[0].nblocks + b[1].nblocks;
-  pair_bin_sums<<<scan_blocks, kScanThreads, 0, s>>>(b[0], b[1]);
-  pair_bin_scan<<<scan_blocks, kScanThreads, 0, s>>>(b[0], b[1]);
-  pair_bin_scatter<<<blocks, 256, 0, s>>>(b[0], b[1], E);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const bf16* gp = static_cast<const bf16*>(g);
-  err = launch_pair_tiles<1>(b[0], gp, static_cast<const bf16*>(fmap1),
+  err = launch_pair_tiles<1>(L.l[0], gp, static_cast<const bf16*>(fmap1),
                              static_cast<bf16*>(plane1), E, F, H1, W1, device,
                              s);
   if (err == cudaSuccess)
-    err = launch_pair_tiles<2>(b[1], gp, static_cast<const bf16*>(fmap2),
+    err = launch_pair_tiles<2>(L.l[1], gp, static_cast<const bf16*>(fmap2),
                                static_cast<bf16*>(plane2), E, F, H2, W2,
                                device, s);
   return static_cast<int>(err);
@@ -1189,9 +1630,9 @@ extern "C" int probe_planes_pair_launch(
 // bins pass int32).
 extern "C" int probe_planes_pair_scratch(int E, int F, int H1, int W1,
                                          int H2, int W2) {
-  PairBins b[2];
+  BinLevels L;
   return static_cast<int>(pair_plan(std::max(E, 0), F, H1, W1, H2, W2,
-                                    nullptr, b));
+                                    nullptr, &L));
 }
 
 // Where a launch left each level's work items in its scratch, in int32
@@ -1201,12 +1642,12 @@ extern "C" int probe_planes_pair_scratch(int E, int F, int H1, int W1,
 // does.
 extern "C" int probe_planes_pair_items(int E, int F, int H1, int W1, int H2,
                                        int W2, int* info) {
-  PairBins b[2];
-  if (pair_plan(std::max(E, 0), F, H1, W1, H2, W2, nullptr, b) < 0)
+  BinLevels L;
+  if (pair_plan(std::max(E, 0), F, H1, W1, H2, W2, nullptr, &L) < 0)
     return -1;
   for (int l = 0; l < 2; ++l) {
-    info[2 * l] = static_cast<int>(b[l].items_at);
-    info[2 * l + 1] = static_cast<int>(b[l].nitems_at);
+    info[2 * l] = static_cast<int>(L.l[l].items_at);
+    info[2 * l + 1] = static_cast<int>(L.l[l].nitems_at);
   }
   return 0;
 }
@@ -1366,16 +1807,72 @@ extern "C" int probe_dots_shape(int variant, int W, int E, int device,
   return 0;
 }
 
-// K6 slab. out (E, 9, 256) bf16.
+// K6 slab. out (E, 9, 256) bf16: the chain of the target-tile design
+// (bin_count, bin_sums, bin_scan, bin_scatter at one level of exact-by fine
+// bins, probe_slab_tiles) on `stream`, no synchronize. scratch: int32 of at
+// least probe_slab_scratch(E, H, W) words, any contents (the launch zeroes
+// what it must).
 extern "C" int probe_slab_launch(const void* g, const void* fmap,
                                  const void* by, const void* bx, void* out,
-                                 int E, int H, int W, int device,
-                                 void* stream) {
+                                 void* scratch, int E, int H, int W,
+                                 int device, void* stream) {
   if (E <= 0) return 0;
   if (const int err = set_device(device)) return err;
-  probe_slab<<<E, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(fmap),
-      static_cast<const int*>(by), static_cast<const int*>(bx),
-      static_cast<bf16*>(out), H, W);
+  BinLevels L;
+  if (slab_plan(E, H, W, static_cast<int*>(scratch), &L) < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BinLevel& b = L.l[0];
+  b.jj = nullptr;
+  b.by = static_cast<const int*>(by);
+  b.bx = static_cast<const int*>(bx);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_binning(L, E, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  RingShape sh;
+  if ((err = slab_tiles_shape(E, device, &sh)) != cudaSuccess)
+    return static_cast<int>(err);
+  const SlabArgs a{static_cast<const bf16*>(g), static_cast<const bf16*>(fmap),
+                   static_cast<bf16*>(out), b.items, b.nitems, b.claim,
+                   b.rec, H, W, b.TY, b.NYB, b.NXB, b.ncoarse - 1};
+  probe_slab_tiles<<<sh.grid, sh.threads, sh.smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The int32 scratch words probe_slab_launch needs (-1: the map's bins pass
+// int32).
+extern "C" int probe_slab_scratch(int E, int H, int W) {
+  BinLevels L;
+  return static_cast<int>(slab_plan(std::max(E, 0), H, W, nullptr, &L));
+}
+
+// Where a launch left its work items in its scratch, in int32 words from
+// its start: info[0] the items (int4: first sorted position, edges, coarse
+// bin, the positions of its tile in the map), info[1] their number.
+// Returns -1 where the scratch entry does.
+extern "C" int probe_slab_items(int E, int H, int W, int* info) {
+  BinLevels L;
+  if (slab_plan(std::max(E, 0), H, W, nullptr, &L) < 0) return -1;
+  info[0] = static_cast<int>(L.l[0].items_at);
+  info[1] = static_cast<int>(L.l[0].nitems_at);
+  return 0;
+}
+
+// The launch shape of the slab's tile kernel for E edges on `device`:
+// info[0 .. 4] = grid, threads, dynamic shared memory bytes, registers per
+// thread, blocks per SM; info[5 .. 10] = the tile's map rows, edges per
+// item at most, consumer warps, tile rows per unit, m16 tiles per unit at
+// most and per pass.
+extern "C" int probe_slab_shape(int E, int device, int* info) {
+  if (const int err = set_device(device)) return err;
+  RingShape sh;
+  const cudaError_t err = slab_tiles_shape(E, device, &sh);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vals[11] = {sh.grid,          sh.threads,
+                        sh.smem,          sh.regs,
+                        sh.blocks_per_sm, SlabTile::kRows,
+                        SlabTile::kCap,   SlabTile::kWarps,
+                        SlabTile::kUnitRows, SlabTile::kUnit,
+                        SlabTile::kPass};
+  for (int k = 0; k < 11; ++k) info[k] = vals[k];
+  return 0;
 }

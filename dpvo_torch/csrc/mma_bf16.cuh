@@ -31,13 +31,7 @@ struct GFrag {
   uint4 hi[kChunks];
 };
 
-// The 9 g rows (9 x 128 bf16, contiguous) into shared memory, unpermuted.
-__device__ __forceinline__ void stage_g(const bf16* __restrict__ g,
-                                        uint4* s_g, int tid, int nthr) {
-  const uint4* src = reinterpret_cast<const uint4*>(g);
-  for (int i = tid; i < kP2 * kRowU4; i += nthr) s_g[i] = __ldg(src + i);
-}
-
+// The A operand from the 9 g rows in shared memory, unpermuted.
 __device__ __forceinline__ GFrag load_gfrag(const uint4* s_g) {
   const int lane = threadIdx.x & 31, grp = lane >> 2, t = lane & 3;
   GFrag a;
@@ -74,19 +68,6 @@ __device__ __forceinline__ void tile_mma(const GFrag& a,
     mma_bf16(d, a.lo[c].x, a.hi[c].x, a.lo[c].y, a.hi[c].y, b[c].x, b[c].y);
     mma_bf16(d, a.lo[c].z, a.hi[c].z, a.lo[c].w, a.hi[c].w, b[c].z, b[c].w);
   }
-}
-
-// tile_mma with B read straight from a channels-last map: `row` is this
-// lane's row in global memory (nullptr reads as zeros).
-__device__ __forceinline__ void tile_dot(const GFrag& a, const bf16* row,
-                                         float (&d)[4]) {
-  const int t = threadIdx.x & 3;
-  uint4 b[kChunks];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-    b[c] = row ? __ldg(reinterpret_cast<const uint4*>(row) + 4 * c + t)
-               : make_uint4(0, 0, 0, 0);
-  tile_mma(a, b, d);
 }
 
 // B of one tile from this lane's row of a ring stage whose rows land

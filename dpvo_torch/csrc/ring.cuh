@@ -71,6 +71,15 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       : "memory");
 }
 
+// asks L2 to fetch `bytes` (a multiple of 16) from global `src` ahead of a
+// later copy (cp.async.bulk.prefetch; no completion to wait for)
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src,
+                                                 uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
 // ---- host: the launch shape of a persistent ring kernel ----
 
 // grid, threads, dynamic shared memory, registers and blocks per SM

@@ -22,7 +22,10 @@ instantiation's ring is fixed at compile time (PLANES_RING) and its launch
 shape is `planes_ring_shape`. K4 bins its edges by target tile on the
 device and stages each tile's map rows once per work item of up to
 PAIR_CAP edges (PAIR_TILE, `pair_shape`; `pair_work` reads the items of
-one call back).
+one call back). K6 slab runs the same binning at one level with its edges
+sorted by row base inside each bin, and computes each tile row's products
+for the run of edges whose windows hold it as one GEMM (SLAB_TILE,
+`slab_shape`; `slab_work` reads the items of one call back).
 
 Inputs are in the port's terms: unpadded channels-last bf16 maps, the
 edges' pre-gathered source rows g9 (E, 9, 128), int32 target frames jj and
@@ -71,6 +74,10 @@ FIRST49 = ('planes_first49', 'planes_first49_streams')
 # edges per work item at most
 PAIR_TILE = {1: (15, 4, 2, 9), 2: (30, 8, 1, 10)}
 PAIR_CAP = 64
+# K6 slab's tile (csrc/corr_probes.cu:SlabTile): map rows at most, edges
+# per work item at most, consumer warps, blocks asked for on each SM, tile
+# rows per unit of work, m16 tiles per unit at most and per pass
+SLAB_TILE = (18, 16, 5, 2, 2, 12, 2)
 
 launches = dict.fromkeys((
     'planes_pair', 'planes_roll', 'dots', 'dots2', 'slab', 'planes_first49',
@@ -98,7 +105,10 @@ SIGNATURES = {
     'probe_planes_ring_shape': [_I] * 3 + [_P],
     'probe_dots_launch': [_P] * 3 + [_I] * 4 + [_P],
     'probe_dots_shape': [_I] * 4 + [_P],
-    'probe_slab_launch': [_P] * 5 + [_I] * 4 + [_P],
+    'probe_slab_launch': [_P] * 6 + [_I] * 4 + [_P],
+    'probe_slab_scratch': [_I] * 3,
+    'probe_slab_items': [_I] * 3 + [_P],
+    'probe_slab_shape': [_I] * 2 + [_P],
 }
 
 
@@ -360,11 +370,12 @@ def pair_work(g9, fmap1, fmap2, jj, by1, bx1, by2, bx2):
             .reshape(-1, 4).long() for l in range(2)]
 
 
-def pair_stats(work):
-    """What K4's chain reads from L2 per call, from its work items
-    (pair_work): {'items', 'edges_per_item' (mean), 'tile_bytes' (each
-    item's tile in the map, both levels), 'g_bytes' (the g rows of the
-    edges of items that copy a tile)}."""
+def tile_stats(work):
+    """What a target-tile chain reads from L2 per call, from its work items
+    (a list of item arrays: pair_work's, or [slab_work's]): {'items',
+    'edges_per_item' (mean), 'tile_bytes' (each item's tile in the map,
+    every level), 'g_bytes' (the g rows of the edges of items that copy a
+    tile)}."""
     items = torch.cat(work)
     n = max(len(items), 1)
     tiled = items[:, 3] > 0
@@ -582,21 +593,88 @@ def dots2(g9, win):
     return _dots('dots2', 1, DOTS2_W, torch.bfloat16, g9, win)
 
 
-def slab(g9, fmap, by, bx):
-    """K6 fused_kernel: (E, 9, 256) bf16 from a 16 x 16 window per edge of
-    one resident map fmap (H, W, C) (see slab_plain). CPU tensors take the
-    plain version."""
-    dev = _device(g9)
-    if dev.type == 'cpu':
-        return slab_plain(g9, fmap, by, bx)
+def _slab_chain(dev, g9, fmap, by, bx):
+    """K6 slab's chain on CUDA tensors: (out, its int32 scratch or None
+    for no edges, E, (H, W))."""
     E = _check_g9(dev, g9)
     _check_bf16(dev, fmap=fmap)
     if fmap.dim() != 3:
         raise ValueError(f'fmap must be (H, W, {C}), got {tuple(fmap.shape)}')
     _check_int(dev, E, by=by, bx=bx)
+    hw = tuple(fmap.shape[:2])
     out = torch.empty((E, P2, SLAB * SLAB), dtype=torch.bfloat16, device=dev)
+    scratch = None
     if E:
+        words = _lib.probe_slab_scratch(E, *hw)
+        if words < 0:
+            raise ValueError(f'slab: map {hw} gives more bins than int32 '
+                             'counts')
+        scratch = torch.empty(words, dtype=torch.int32, device=dev)
         _launched('slab', _lib.probe_slab_launch(
-            g9.data_ptr(), fmap.data_ptr(), by.data_ptr(), bx.data_ptr(),
-            out.data_ptr(), E, fmap.shape[0], fmap.shape[1], *_stream(dev)))
-    return out
+            *map(_ptr, (g9, fmap, by, bx, out, scratch)), E, *hw,
+            *_stream(dev)))
+    return out, scratch, E, hw
+
+
+def slab(g9, fmap, by, bx):
+    """K6 fused_kernel: (E, 9, 256) bf16 from a 16 x 16 window per edge of
+    one resident map fmap (H, W, C) (see slab_plain), any int32 bases. On
+    the card as target tiles: the edges binned by (row bin, bx) and sorted
+    by by on the device, each tile row's products one GEMM of the run of
+    edges whose windows hold it; one chain of kernels on the current
+    stream, with no synchronize. CPU tensors take the plain version."""
+    dev = _device(g9)
+    if dev.type == 'cpu':
+        return slab_plain(g9, fmap, by, bx)
+    return _slab_chain(dev, g9, fmap, by, bx)[0]
+
+
+def slab_work(g9, fmap, by, bx):
+    """K6 slab's work items as its chain makes them on the card: one call
+    of slab's chain (one launch) on CUDA tensors, then its scratch read
+    back (a synchronize; for checks and reports, never on the path).
+    Returns (n, 4) int64 on the CPU in the kernel's order: first position
+    in the edges sorted by bin, edges, coarse bin (the last: the edges that
+    write zeros), the positions of the item's tile that lie in the map
+    (the map rows of its edges' windows x the in-map columns; 0 for the
+    zero bin)."""
+    dev = _device(g9)
+    if dev.type != 'cuda':
+        raise ValueError('slab_work reads the items of a launch on the card')
+    _, scratch, E, hw = _slab_chain(dev, g9, fmap, by, bx)
+    if scratch is None:
+        return torch.zeros((0, 4), dtype=torch.int64)
+    info = (ctypes.c_int * 2)()
+    if _lib.probe_slab_items(E, *hw, info) != 0:
+        raise ValueError(f'slab: map {hw} gives more bins than int32 counts')
+    host = scratch.cpu()
+    return host[info[0]:info[0] + 4 * int(host[info[1]])].reshape(-1,
+                                                                  4).long()
+
+
+def slab_smem():
+    """Dynamic shared memory per block of K6 slab's tile kernel, in bytes:
+    the tile (map rows x 16 positions of 256-byte channel rows), the g
+    stage (9 rows of 256 B per edge of an item), (edge, by) per edge, 16
+    bytes per tile row, the item (32 bytes), the units' claim counter (16
+    bytes) and two 8-byte barriers."""
+    rows, cap = SLAB_TILE[:2]
+    return rows * SLAB * C * 2 + cap * P2 * C * 2 + 8 * cap + 16 * rows + \
+        32 + 16 + 16
+
+
+def slab_shape(E, device=0):
+    """The launch shape of K6 slab's tile kernel for E edges, as the CUDA
+    runtime reports it: grid, threads, smem (dynamic bytes), regs,
+    resident (blocks per SM), and its tile: rows (map rows at most), cap
+    (edges per item at most), warps (consumer warps), unit_rows (tile rows
+    per unit of work), unit and pass (m16 tiles per unit at most and per
+    pass)."""
+    if _lib is None:
+        build()
+    info = (ctypes.c_int * 11)()
+    err = _lib.probe_slab_shape(E, device, info)
+    if err != 0:
+        raise RuntimeError(f'probe_slab_shape: CUDA error {err}')
+    return dict(zip(('grid', 'threads', 'smem', 'regs', 'resident', 'rows',
+                     'cap', 'warps', 'unit_rows', 'unit', 'pass'), info))

@@ -109,6 +109,16 @@ def _batch_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def device_ms(fn, rounds=5, reps=20):
+    """fn's device time: `rounds` rounds of `reps` runs back to back
+    (_batch_ms), after one warm-up run. Returns (the rounds' median ms per
+    run, the rounds' ms)."""
+    fn()
+    torch.cuda.synchronize()
+    times = [_batch_ms(fn, reps) for _ in range(rounds)]
+    return float(np.median(times)), times
+
+
 def time_paired(fn, other, rounds=5, reps=20):
     """fn() and other() timed in turns, after one warm-up run of each:
     `rounds` rounds of (fn x reps, other x reps), each batch back to back

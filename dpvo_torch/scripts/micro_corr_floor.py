@@ -10,11 +10,15 @@ Counterpart of scripts/micro_corr_floor.py. At scale 1 its sizes: E =
   dots2  the same reading the first 256 rows of each window, bf16 out;
          yardstick torch.bmm on the strided view;
   slab   a 16x16 window per edge sliced from one resident 120x160 map,
-         bf16 out: window y in [0, 104), x a multiple of 8 in [0, 144).
+         bf16 out: window y in [0, 104), x a multiple of 8 in [0, 144)
+         (slab_inputs, its own seeded stream).
 Each variant is held against its plain version; times are CUDA-event
 medians of 20 launches, each timed alone (the card only). dots and dots2
 are also timed in turns with their torch.bmm, 5 rounds of 20 back-to-back
-launches of each, and the kernel / library ratio is printed.
+launches of each, and the kernel / library ratio is printed. On the card
+the slab's device time (5 rounds of 20 back-to-back launches) and the work
+items of one call of its chain (ops/corr_probes.py:slab_work: items, edges
+per item, the tiles and g rows it reads from L2) are printed too.
 """
 from __future__ import annotations
 
@@ -44,17 +48,30 @@ def _bmm_f32(g9, win):
                 'torch.bmm(g9, win^T).float(): bf16 out, no out_dtype')
 
 
+def slab_inputs(dev, scale=1.0, seed=0):
+    """The slab's seeded inputs on dev, (g9, fmap, by, bx), from a stream
+    of their own (so that they need not draw the dots' windows)."""
+    E = cm.scaled(E0, scale, 16)
+    rng = np.random.default_rng((seed, 1))
+    g9 = cm.normal(rng, (E, P2, C), dev)
+    fmap = cm.normal(rng, (H4, W4, C), dev)
+    by = cm.ints(rng.integers(0, H4 - cp.SLAB, E), dev)
+    bx = cm.ints(rng.integers(0, (W4 - cp.SLAB) // 8, E) * 8, dev)
+    return g9, fmap, by, bx
+
+
 def main(device='cuda', scale=1.0, seed=0):
     """Runs dots, dots2 and slab against their plain versions; returns
-    {'E', 'variants': {name: row}}."""
+    {'E', 'variants': {name: row}, 'slab_device_ms' (the slab's device
+    time), 'slab_work' (its work items, slab_work), 'slab_stats' (their
+    items and bytes from L2, corr_probes.tile_stats); the last three None
+    off the card}."""
     dev = cm.device(device)
     E = cm.scaled(E0, scale, 16)
     rng = np.random.default_rng(seed)
     g9 = cm.normal(rng, (E, P2, C), dev)
     win = cm.normal(rng, (E, cp.DOTS_W, C), dev)
-    fmap = cm.normal(rng, (H4, W4, C), dev)
-    by = cm.ints(rng.integers(0, H4 - cp.SLAB, E), dev)
-    bx = cm.ints(rng.integers(0, (W4 - cp.SLAB) // 8, E) * 8, dev)
+    sg9, fmap, by, bx = slab_inputs(dev, scale, seed)
     print(f'micro_corr_floor: E = {E}, windows {cp.DOTS_W} x {C}, slab '
           f'{H4}x{W4}', flush=True)
 
@@ -75,13 +92,25 @@ def main(device='cuda', scale=1.0, seed=0):
         library_form='torch.bmm(g9, win[:, :256]^T), bf16 out')
     n = cp.SLAB * cp.SLAB
     yx = cm.window_yx(by, bx, cp.SLAB, n)
-    rows['slab'] = cm.run(
+    rows['slab'] = row = cm.run(
         'slab (K6 fused_kernel)', 'slab', f'{SCRIPT}:126',
-        lambda: cp.slab(g9, fmap, by, bx),
-        lambda: cp.slab_plain(g9, fmap, by, bx),
-        cm.nbytes(g9, by, bx) + cm.map_bytes(None, *yx, 1, H4, W4) +
+        lambda: cp.slab(sg9, fmap, by, bx),
+        lambda: cp.slab_plain(sg9, fmap, by, bx),
+        cm.nbytes(sg9, by, bx) + cm.map_bytes(None, *yx, 1, H4, W4) +
         E * P2 * n * 2, 2 * E * P2 * n * C, dev)
-    return dict(E=E, variants=rows)
+    device_ms = work = st = None
+    if dev.type == 'cuda':
+        device_ms, rounds = cm.device_ms(lambda: cp.slab(sg9, fmap, by, bx))
+        work = cp.slab_work(sg9, fmap, by, bx)
+        st = cp.tile_stats([work])
+        print(f'  slab device time {device_ms!r} ms (rounds {min(rounds)!r} '
+              f'.. {max(rounds)!r}), {row["bound_ms"] / device_ms!r} of its '
+              f'bound; reads per call: {st["items"]} work items, '
+              f'{st["edges_per_item"]!r} edges per item, tiles '
+              f'{st["tile_bytes"] / 1e9!r} GB and g rows '
+              f'{st["g_bytes"] / 1e9!r} GB from L2', flush=True)
+    return dict(E=E, variants=rows, slab_device_ms=device_ms, slab_work=work,
+                slab_stats=st)
 
 
 if __name__ == '__main__':

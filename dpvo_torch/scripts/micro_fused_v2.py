@@ -76,8 +76,8 @@ def main(device='cuda', scale=1.0, seed=0):
     {'E', 'F', 'variants': {name: row}, 'reference': {name: row},
     'paired': {'planes_roll / planes_pair': _common.paired's dict},
     'pair_work': on the card the work items of one call of K4's chain
-    (pair_work), 'pair_stats': its items and bytes from L2 (pair_stats);
-    None off the card}."""
+    (pair_work), 'pair_stats': its items and bytes from L2
+    (corr_probes.tile_stats); None off the card}."""
     dev = cm.device(device)
     inp = inputs(dev, scale, seed)
     E, F, args, (sh1, sh2), w1, w2 = (inp[k] for k in ('E', 'F', 'args',
@@ -126,7 +126,7 @@ def main(device='cuda', scale=1.0, seed=0):
     paired, work, st = {}, None, None
     if dev.type == 'cuda':
         work = cp.pair_work(*args)
-        st = cp.pair_stats(work)
+        st = cp.tile_stats(work)
         print(f'  planes_pair (K4) reads per call: {st["items"]} work items, '
               f'{st["edges_per_item"]!r} edges per item, tiles '
               f'{st["tile_bytes"] / 1e9!r} GB and g rows '

@@ -1,11 +1,13 @@
-"""The probes K4 and K7 and the kernels on the planes ring against other
-builds of their sources, on the card: K4 (planes_pair, target tiles), K7
+"""The probes K4, K6 slab and K7 and the kernels on the planes ring against
+other builds of their sources, on the card: K4 (planes_pair, target
+tiles), K6 slab (slab, target tiles over by-sorted edges), K7
 (planes_first49, both variants), K5 (planes_roll), K8 (planes_w12x16,
 planes_fixedw) and K2 (ops/corr_fused.planes on bf16 maps); K2, K5, K7 and
 K8 run csrc/planes_ring.cuh:ring_body.
 
     python -m dpvo_torch.scripts.ring_sweep [--against DIR] [--sweep]
-                                            [--ablate] [--out FILE]
+                                            [--ablate] [--only KEY ...]
+                                            [--out FILE]
 
 --against DIR compiles DIR/corr_probes.cu and DIR/corr_fused.cu (the csrc
 directory of another checkout, its headers beside them, e.g. the parent
@@ -13,19 +15,24 @@ commit's unpacked with `git archive`) and times each kernel of this
 checkout against its counterpart there, in turns both ways round
 (_common.time_paired: device time of back-to-back launches): K4 and K5 on
 micro_fused_v2's inputs (K5 also with zero rolls, which wrap no row run),
-K7 (both) on micro_onepass_dma's, K8 (both) on micro_kernel_variants', K2
-on chip_smoke.py's phase-3 inputs (E = 49,152) and on micro_fused_v2's.
+K6 slab on micro_corr_floor's, K7 (both) on micro_onepass_dma's, K8 (both)
+on micro_kernel_variants', K2 on chip_smoke.py's phase-3 inputs (E =
+49,152) and on micro_fused_v2's.
 --sweep compiles copies of this checkout's csrc with other settings
-(SWEEP: K7's ring, corr_probes.cu:ProbeRing; K4's tiles, PairTile) and times each kernel they change
-against the checkout's build in turns; their outputs must equal the
-checkout's bit for bit (no setting changes a sum).
---ablate builds copies with parts of K4's tile kernels or of K7's ring
-taken out (ABLATIONS: the global stores, the mma, the copies of map rows
-into shared memory, and their unions; PARTS has each edit) and times each
-against the checkout's build in turns, as the sweep does; their outputs
-are wrong by design and are not compared.
-Each prints ptxas's register and spill lines of the kernels compared and
-the card's name and power limit; --out writes every row as JSON.
+(SWEEP: K7's ring, corr_probes.cu:ProbeRing; K4's tiles, PairTile; the
+slab's tile, SlabTile) and times each kernel they change against the
+checkout's build in turns; their outputs must equal the checkout's bit
+for bit (no setting changes a sum).
+--ablate builds copies with parts of K4's tile kernels, of K7's ring or of
+the slab's tile kernel taken out (ABLATIONS: the global stores, the mma,
+the copies into shared memory, and their unions; PARTS has each edit) and
+times each against the checkout's build in turns, as the sweep does;
+their outputs are wrong by design and are not compared.
+--only KEY (a key of corr_probes.launches, or 'corr_planes' for K2; may
+repeat) keeps the kernels, sweep settings and ablations of those wrappers
+only. Each prints ptxas's register and spill lines of the kernels
+compared and the card's name and power limit; --out writes every row as
+JSON.
 """
 from __future__ import annotations
 
@@ -44,14 +51,16 @@ import torch
 from dpvo_torch.ops import corr_fused, cuda_lib
 from dpvo_torch.ops import corr_probes as cp
 from dpvo_torch.scripts import _common as cm
-from dpvo_torch.scripts import (micro_fused_v2, micro_kernel_variants,
-                                micro_onepass_dma)
+from dpvo_torch.scripts import (micro_corr_floor, micro_fused_v2,
+                                micro_kernel_variants, micro_onepass_dma)
 
 BUILD = cuda_lib.BUILD_DIR / 'ring_sweep'
 # the settings of each sweep variant: 'ring', K7's ring (stages, window
 # positions per stage, consumer warps, blocks per SM) for both variants;
-# 'tile', {level: K4's tile (map rows, consumer
-# warps, blocks per SM, tile pairs per unit)}
+# 'tile', {level: K4's tile (map rows, consumer warps, blocks per SM, tile
+# pairs per unit)}; 'slab', the slab's tile (map rows, edges per item,
+# consumer warps, blocks per SM, tile rows per unit, m16 tiles per unit at
+# most and per pass)
 SWEEP = [dict(ring=(3, 64, 2, 4)),        # the ring of K5 and K8
          dict(ring=(3, 64, 4, 4)),
          dict(ring=(2, 64, 2, 5)),
@@ -66,16 +75,26 @@ SWEEP = [dict(ring=(3, 64, 2, 4)),        # the ring of K5 and K8
          dict(tile={2: (30, 8, 1, 5)}),
          dict(tile={2: (30, 4, 1, 10)}),
          dict(tile={2: (19, 4, 2, 10)}),    # 4 row bins of a 30-row map
-         dict(tile={2: (19, 8, 2, 5)})]
+         dict(tile={2: (19, 8, 2, 5)}),
+         dict(slab=(32, 32, 8, 1, 2, 12, 2)),   # TY = 17, 1 block per SM
+         dict(slab=(20, 64, 8, 1, 2, 12, 2)),   # TY = 5, 64 edges
+         dict(slab=(18, 16, 4, 2, 2, 12, 2)),
+         dict(slab=(18, 16, 5, 2, 1, 12, 2)),   # one row per unit
+         dict(slab=(18, 16, 5, 2, 2, 12, 1)),   # 4 chains per pass
+         dict(slab=(18, 16, 5, 2, 2, 8, 2)),
+         dict(slab=(18, 16, 5, 2, 2, 16, 2)),
+         dict(slab=(17, 16, 5, 2, 2, 12, 2)),   # TY = 2
+         dict(slab=(19, 16, 5, 2, 2, 12, 2))]   # TY = 4
 FIRST49 = cp.FIRST49
 
 # the parts of a kernel an ablation takes out: (file in csrc, text, the
 # text that replaces it). Stores stay in the code behind a test that never
-# passes (on a product for K4, on the map's height for K7), so the
-# products stay live; mma is replaced by B's words, so the B loads stay
-# (the A fragment's loads go with it); each copy of map rows into shared
-# memory moves one 256-byte row, so the bytes go and the copies' issue and
-# barriers stay.
+# passes (on a product for K4 and the slab, on the map's height for K7), so
+# the products stay live; mma is replaced by B's words, so the B loads stay
+# (K4, K7: the A fragment's loads go with it; the slab: A's and B's words
+# xor-folded, so that both stay); each copy into shared memory (map rows;
+# the slab's g rows too) moves one 256-byte row, so the bytes go and the
+# copies' issue and barriers stay.
 _MMA_OUT = ('{d}[0] = __uint_as_float(b[0].x);\n{i}{d}[1] = '
             '__uint_as_float(b[1].y);\n{i}{d}[2] = __uint_as_float(b[2].z);'
             '\n{i}{d}[3] = __uint_as_float(b[3].w);')
@@ -108,14 +127,46 @@ PARTS = {
         ('planes_ring.cuh', '                    run.src + (lo - pa) * kC, '
          'n * kRowBytes, full);', '                    run.src + (lo - pa) '
          '* kC, kRowBytes, full);')],
+    'k6 stores': [('corr_probes.cu',
+                   '        if (fr < f_stop && q >= 0 && q < kSlab)',
+                   '        if (fr < f_stop && q >= 0 && q < kSlab &&\n'
+                   '            d[m][0][0][0] == 1.2345e-38f)')],
+    'k6 mma': [
+        ('corr_probes.cu',
+         '            mma_bf16(d[m][r][n], a[m][0][c].x, a[m][1][c].x, '
+         'a[m][0][c].y,\n                     a[m][1][c].y, b[r][n][2 * h + '
+         'c].x, b[r][n][2 * h + c].y);',
+         '            d[m][r][n][0] = __uint_as_float(__float_as_uint(d[m][r]'
+         '[n][0]) ^\n                a[m][0][c].x ^ a[m][1][c].x ^ '
+         'a[m][0][c].y ^ a[m][1][c].y ^\n                b[r][n][2 * h + '
+         'c].x ^ b[r][n][2 * h + c].y);'),
+        ('corr_probes.cu',
+         '            mma_bf16(d[m][r][n], a[m][0][c].z, a[m][1][c].z, '
+         'a[m][0][c].w,\n                     a[m][1][c].w, b[r][n][2 * h + '
+         'c].z, b[r][n][2 * h + c].w);',
+         '            d[m][r][n][1] = __uint_as_float(__float_as_uint(d[m][r]'
+         '[n][1]) ^\n                a[m][0][c].z ^ a[m][1][c].z ^ '
+         'a[m][0][c].w ^ a[m][1][c].w ^\n                b[r][n][2 * h + '
+         'c].z ^ b[r][n][2 * h + c].w);')],
+    'k6 copies': [
+        ('corr_probes.cu', 'tiled ? (t.rows * t.nx + ne * kP2) * kRowBytes',
+         'tiled ? (t.rows + ne) * kRowBytes'),
+        ('corr_probes.cu', '                    t.nx * kRowBytes, full);',
+         '                    kRowBytes, full);'),
+        ('corr_probes.cu', '(r0.x) * kP2 * kC, kGBytes,',
+         '(r0.x) * kP2 * kC, kRowBytes,'),
+        ('corr_probes.cu', '(r1.x) * kP2 * kC, kGBytes,',
+         '(r1.x) * kP2 * kC, kRowBytes,')],
 }
-# the ablations of --ablate: K4's and K7's parts, alone and together
-ABLATIONS = [dict(ablate=(k + ' stores',)) for k in ('k4', 'k7')] + \
-    [dict(ablate=(k + ' mma',)) for k in ('k4', 'k7')] + \
-    [dict(ablate=(k + ' stores', k + ' mma')) for k in ('k4', 'k7')] + \
-    [dict(ablate=(k + ' copies',)) for k in ('k4', 'k7')] + \
+KERNELS = ('k4', 'k7', 'k6')
+# the ablations of --ablate: K4's, K7's and the slab's parts, alone and
+# together
+ABLATIONS = [dict(ablate=(k + ' stores',)) for k in KERNELS] + \
+    [dict(ablate=(k + ' mma',)) for k in KERNELS] + \
+    [dict(ablate=(k + ' stores', k + ' mma')) for k in KERNELS] + \
+    [dict(ablate=(k + ' copies',)) for k in KERNELS] + \
     [dict(ablate=(k + ' stores', k + ' mma', k + ' copies'))
-     for k in ('k4', 'k7')]
+     for k in KERNELS]
 
 
 def with_ring(src, key, ring):
@@ -145,6 +196,19 @@ def with_tile(src, level, tile):
     return out
 
 
+def with_slab(src, tile):
+    """The source with SlabTile set to `tile`."""
+    pat = (r'(struct SlabTile \{  // slab\s*static constexpr int )kRows = '
+           r'\d+, kCap = \d+, kWarps = \d+, kBlocksPerSm = \d+,(\s*)'
+           r'kUnitRows = \d+, kUnit = \d+, kPass = \d+;')
+    rep = (r'\g<1>kRows = {}, kCap = {}, kWarps = {}, kBlocksPerSm = {},'
+           r'\g<2>kUnitRows = {}, kUnit = {}, kPass = {};').format(*tile)
+    out, n = re.subn(pat, rep, src)
+    if n != 1:
+        raise RuntimeError('SlabTile not found')
+    return out
+
+
 def with_parts(csrc, names):
     """Takes the parts `names` (keys of PARTS) out of the sources in the
     directory `csrc`, in place."""
@@ -162,8 +226,10 @@ def changed(variant):
     """The wrappers (keys of corr_probes.launches) whose kernels a sweep
     or ablation variant changes."""
     if 'ablate' in variant:
-        return ('planes_pair',) if variant['ablate'][0].startswith('k4') \
-            else FIRST49
+        return {'k4': ('planes_pair',), 'k6': ('slab',),
+                'k7': FIRST49}[variant['ablate'][0][:2]]
+    if 'slab' in variant:
+        return ('slab',)
     return ('planes_pair',) if 'tile' in variant else FIRST49
 
 
@@ -191,6 +257,8 @@ def variant_csrc(variant):
             src = with_ring(src, key, variant['ring'])
     for level, tile in variant.get('tile', {}).items():
         src = with_tile(src, level, tile)
+    if 'slab' in variant:
+        src = with_slab(src, variant['slab'])
     (out / 'corr_probes.cu').write_text(src)
     with_parts(out, variant.get('ablate', ()))
     return out, tag
@@ -244,6 +312,7 @@ def calls(dev):
     a5, (sh1, sh2), E5 = v2['args'], v2['sh'], v2['E']
     a7 = micro_onepass_dma.inputs(dev)
     a8 = micro_kernel_variants.inputs(dev)['args']
+    a6 = micro_corr_floor.slab_inputs(dev)
     from chip_smoke import corr_case     # phase 3's inputs
     gmap, f1, f2, co, kk, jj = corr_case(49152, 36, 120, 160, 36 * 96, 2)
     g, f1, f2 = (torch.from_numpy(a).to(dev).to(torch.bfloat16)
@@ -258,6 +327,7 @@ def calls(dev):
     return [
         ('planes_pair (K4)', 'planes_pair', 'corr_probes',
          lambda m: m.planes_pair(*a5)),
+        ('slab (K6)', 'slab', 'corr_probes', lambda m: m.slab(*a6)),
         ('planes_first49 (K7)', 'planes_first49', 'corr_probes',
          lambda m: m.planes_first49(*a7['args'])),
         ('planes_first49 (K7, STREAMS=1)', 'planes_first49_streams',
@@ -289,10 +359,11 @@ def paired_both(new, old, fn):
                 ratios=r1 + [1 / r for r in r2])
 
 
-def against(dev, csrc, rows):
-    """This checkout's kernels against DIR's in turns (module
-    docstring)."""
-    names = ('probe_planes', 'probe_pair_tiles', 'corr_planes_ring')
+def against(dev, csrc, rows, only=None):
+    """This checkout's kernels against DIR's in turns (module docstring);
+    `only`: the wrapper keys to compare (None: all)."""
+    names = ('probe_planes', 'probe_pair_tiles', 'probe_slab',
+             'corr_planes_ring')
     mods = {'corr_probes': cp, 'corr_fused': corr_fused}
     with ThreadPoolExecutor(2) as ex:
         sos = dict(zip(mods, ex.map(
@@ -308,7 +379,9 @@ def against(dev, csrc, rows):
         for so in libs:
             for k, v in ptxas(Path(so), names).items():
                 print(f'  ptxas ({tag}) {k}: {v}', flush=True)
-    for name, _, mod, fn in calls(dev):
+    for name, key, mod, fn in calls(dev):
+        if only and (key or 'corr_planes') not in only:
+            continue
         got, ref = on(*new[mod], fn)(), on(*old[mod], fn)()
         err, scale, ok = cm.compare(got, ref)
         if not ok:
@@ -330,6 +403,8 @@ def sweep(dev, rows, variants=SWEEP, compare=True):
     """The variants (SWEEP, or ABLATIONS with compare False) against this
     checkout's build in turns, on the kernels each changes; with `compare`
     their outputs must equal the checkout's bit for bit."""
+    if not variants:
+        return
     cp.build()
     base = cp._lib
     srcs = [variant_csrc(v) for v in variants]
@@ -339,8 +414,8 @@ def sweep(dev, rows, variants=SWEEP, compare=True):
     todo = calls(dev)
     for variant, so in zip(variants, sos):
         lib = load(so, cp.SIGNATURES)
-        for k, v in ptxas(so, ('probe_planes_ring', 'probe_pair_tiles')
-                          ).items():
+        for k, v in ptxas(so, ('probe_planes_ring', 'probe_pair_tiles',
+                               'probe_slab_tiles')).items():
             print(f'  ptxas {variant}: {k}: {v}', flush=True)
         for name, key, _, fn in todo:
             if key not in changed(variant):
@@ -368,6 +443,7 @@ def main():
     ap.add_argument('--against', type=Path)
     ap.add_argument('--sweep', action='store_true')
     ap.add_argument('--ablate', action='store_true')
+    ap.add_argument('--only', action='append')
     ap.add_argument('--out', type=Path)
     a = ap.parse_args()
     dev = cm.device('cuda')
@@ -378,12 +454,15 @@ def main():
     rows = {'card': smi, 'against': [], 'sweep': [], 'ablate': []}
     cp.build()
     corr_fused.build()
+    def kept(variants):
+        return [v for v in variants
+                if not a.only or set(changed(v)) & set(a.only)]
     if a.against:
-        against(dev, a.against, rows['against'])
+        against(dev, a.against, rows['against'], a.only)
     if a.sweep:
-        sweep(dev, rows['sweep'])
+        sweep(dev, rows['sweep'], kept(SWEEP))
     if a.ablate:
-        sweep(dev, rows['ablate'], ABLATIONS, compare=False)
+        sweep(dev, rows['ablate'], kept(ABLATIONS), compare=False)
     if a.out:
         a.out.parent.mkdir(parents=True, exist_ok=True)
         a.out.write_text(json.dumps(rows, indent=1))

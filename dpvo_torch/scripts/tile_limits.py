@@ -1,17 +1,20 @@
-"""What sets the time of K4's target tiles and of K7, on the card.
+"""What sets the time of K4's and K6 slab's target tiles and of K7, on the
+card.
 
     python -m dpvo_torch.scripts.tile_limits [--out FILE]
 
 Three measurements, each printed with the card's name and power limit
 (the kernels with parts taken out are ring_sweep.py --ablate's):
   * the device time of each kernel of K4's chain (planes_pair: the four
-    binning kernels and the two tile kernels) and of K7 (planes_first49),
-    from a torch.profiler trace of 10 calls on their probe scripts' inputs
-    (micro_fused_v2, micro_onepass_dma);
+    binning kernels and the two tile kernels), of K6 slab's (the binning
+    and its tile kernel) and of K7 (planes_first49), from a torch.profiler
+    trace of 10 calls on their probe scripts' inputs (micro_fused_v2,
+    micro_corr_floor, micro_onepass_dma);
   * the card's mma.sync m16n8k16 (bf16 in, f32 accumulate) rate: a kernel
     that issues only independent chains of mma on registers, 132 blocks of
     4-16 warps with 1-8 chains each, as mma per SM per ns and TFLOP/s;
-  * the instruction mix of the compiled tile kernels and of K7 (cuobjdump
+  * the instruction mix of the compiled tile kernels (K4's and the
+    slab's) and of K7 (cuobjdump
     -sass of this checkout's build, where the toolkit has it): each
     kernel's instructions by opcode, static counts.
 """
@@ -30,7 +33,8 @@ import torch
 from dpvo_torch.ops import corr_probes as cp
 from dpvo_torch.ops import cuda_lib
 from dpvo_torch.scripts import _common as cm
-from dpvo_torch.scripts import micro_fused_v2, micro_onepass_dma
+from dpvo_torch.scripts import (micro_corr_floor, micro_fused_v2,
+                                micro_onepass_dma)
 
 BUILD = cuda_lib.BUILD_DIR / 'tile_limits'
 
@@ -133,7 +137,7 @@ def mma_rate():
 
 
 def sass_mix(so, names=('probe_pair_tilesILi1E', 'probe_pair_tilesILi2E',
-                         'probe_planes_ringILi3E')):
+                         'probe_slab_tiles', 'probe_planes_ringILi3E')):
     """{kernel: {opcode: static count}} of the kernels of `so` whose
     mangled names hold `names`, from cuobjdump -sass; None without it."""
     tool = shutil.which('cuobjdump') or str(
@@ -166,9 +170,11 @@ def main():
     res = {'card': smi}
     cp.build()
     a5 = micro_fused_v2.inputs(dev)['args']
+    a6 = micro_corr_floor.slab_inputs(dev)
     a7 = micro_onepass_dma.inputs(dev)['args']
     res['kernels_us'] = {
         'planes_pair (K4)': kernel_times(lambda: cp.planes_pair(*a5)),
+        'slab (K6)': kernel_times(lambda: cp.slab(*a6)),
         'planes_first49 (K7)': kernel_times(lambda: cp.planes_first49(*a7))}
     for k, v in res['kernels_us'].items():
         print(f'  {k} device us per call: {v}', flush=True)

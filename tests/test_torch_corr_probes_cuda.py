@@ -14,13 +14,17 @@ windows of other lengths; K4 with unsorted edges, every edge in one bin,
 maps smaller and taller than its tiles, and under
 torch.cuda.set_sync_debug_mode('error'), so that a host synchronize in its
 chain fails; the work items its chain makes (corr_probes.pair_work) equal
-the emulation's (test_torch_corr_tiles.bin_items)."""
+the emulation's (test_torch_corr_tiles.bin_items). K6 slab likewise: bases
+across every border, bx off the 8-grid, every edge on one window, edge
+counts around its cap and grid and the probe's E = 49,152, a side stream,
+NaN-filled memory, sync debug mode 'error', and its work items
+(corr_probes.slab_work) against test_torch_corr_tiles.slab_items."""
 import numpy as np
 import pytest
 import torch
 
 from dpvo_torch.ops import corr_probes as cp
-from test_torch_corr_tiles import bin_work
+from test_torch_corr_tiles import _slab_case, bin_work, slab_items
 
 pytestmark = pytest.mark.cuda
 
@@ -473,17 +477,129 @@ def test_dots_launch_shape(cuda, key):
         assert cp.dots_shape(key, E)['grid'] == min(E, full), E
 
 
-def test_slab(cuda):
-    rng = np.random.RandomState(7)
-    E, H, W = 1024, 120, 160
-    g9 = torch.from_numpy(rng.randn(E, P2, C).astype(np.float32)).to(
-        cuda).bfloat16()
-    fmap = torch.from_numpy(rng.randn(H, W, C).astype(np.float32)).to(
-        cuda).bfloat16()
-    by = torch.from_numpy(rng.randint(-20, H, E).astype(np.int32)).to(cuda)
-    bx = torch.from_numpy(rng.randint(-20, W, E).astype(np.int32)).to(cuda)
-    got = _counted('slab', lambda: cp.slab(g9, fmap, by, bx))
-    _close([got], [cp.slab_plain(g9, fmap, by, bx)])
+def _slab_args(dev, seed, E=160, H=40, W=56):
+    """test_torch_corr_tiles._slab_case's inputs (bases across every
+    border, bx off the 8-grid, shared windows) as CUDA tensors."""
+    g, fmap, by, bx = _slab_case(seed, E=E, H=H, W=W)
+    return (torch.from_numpy(g).to(dev).bfloat16(),
+            torch.from_numpy(fmap).to(dev).bfloat16(),
+            torch.from_numpy(by).to(dev), torch.from_numpy(bx).to(dev))
+
+
+def _slab_check(args):
+    """K6 slab launched once against its plain version."""
+    _close([_counted('slab', lambda: cp.slab(*args))],
+           [cp.slab_plain(*args)])
+
+
+@pytest.mark.parametrize('seed,H,W', [(7, 40, 56), (8, 120, 160),
+                                      (9, 10, 12), (10, 200, 72)])
+def test_slab(cuda, seed, H, W):
+    """Bases across every border (negative, half and wholly outside, far
+    outside), bx off the 8-grid, shared windows; maps smaller than a
+    window, the probe's 120x160, and taller and wider ones."""
+    _slab_check(_slab_args(cuda, seed, E=3000, H=H, W=W))
+
+
+def test_slab_probe_inputs(cuda):
+    """The probe's own inputs, E = 49,152 (micro_corr_floor)."""
+    from dpvo_torch.scripts import micro_corr_floor
+    _slab_check(micro_corr_floor.slab_inputs(cuda))
+
+
+def test_slab_edge_counts(cuda):
+    """No edge (no launch), one, one below, at and above the cap, one
+    below and above the tile kernel's grid, and 4,099."""
+    g9, fmap, by, bx = _slab_args(cuda, 11, E=1)
+    before = cp.launches['slab']
+    out = cp.slab(g9[:0], fmap, by[:0], bx[:0])
+    assert out.shape == (0, P2, 256) and cp.launches['slab'] == before
+    cap, grid = cp.SLAB_TILE[1], cp.slab_shape(1 << 20)['grid']
+    for E in (1, cap - 1, cap, cap + 1, grid - 1, grid + 1, 4099):
+        _slab_check(_slab_args(cuda, E, E=E))
+
+
+def test_slab_one_window(cuda):
+    """Every edge on one window (one bin of 3,000 edges split into items
+    of the cap), inside the map and across its corner."""
+    g9, fmap, by, bx = _slab_args(cuda, 12, E=3000)
+    for y, x in ((9, 24), (-5, -9)):
+        _slab_check((g9, fmap, torch.full_like(by, y),
+                     torch.full_like(bx, x)))
+
+
+def test_slab_writes_every_entry_and_repeats(cuda):
+    """Outputs over NaN-filled memory come out finite (zeros outside the
+    map), and a second call (its scratch reused) gives the same bits."""
+    args = _slab_args(cuda, 13, E=2048)
+    outs = []
+    for _ in range(2):
+        torch.full((2048, P2, 256), float('nan'), dtype=torch.bfloat16,
+                   device=cuda)
+        got = _counted('slab', lambda: cp.slab(*args))
+        assert bool(torch.isfinite(got).all())
+        outs.append(got.clone())
+    assert torch.equal(*outs)
+    _close([outs[0]], [cp.slab_plain(*args)])
+
+
+def test_slab_on_a_side_stream(cuda):
+    args = _slab_args(cuda, 14, E=999)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        got = cp.slab(*args)
+    torch.cuda.current_stream().wait_stream(s)
+    _close([got], [cp.slab_plain(*args)])
+
+
+def test_slab_never_synchronizes(cuda):
+    """The chain (binning, scan, scatter, tile kernel) runs with no host
+    synchronize or read-back (sync debug mode 'error')."""
+    args = _slab_args(cuda, 15, E=3000)
+    cp.slab(*args)              # the library built, the shape cached
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = cp.slab(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _close([got], [cp.slab_plain(*args)])
+
+
+def test_slab_items_match_emulation(cuda):
+    """The work items the slab's chain leaves on the card (first sorted
+    position, edges, coarse bin, tile positions) are the emulation's,
+    item for item: bases across every border on maps smaller and larger
+    than a tile, every edge on one window, and the probe's own inputs."""
+    from dpvo_torch.scripts import micro_corr_floor
+    cases = [_slab_args(cuda, H, E=2000, H=H, W=W)
+             for H, W in ((10, 12), (120, 160), (200, 72))]
+    g9, fmap, by, bx = cases[1]
+    cases.append((g9, fmap, torch.full_like(by, 9), torch.full_like(bx, 24)))
+    cases.append(micro_corr_floor.slab_inputs(cuda))
+    for args in cases:
+        work = _counted('slab', lambda: cp.slab_work(*args))
+        H, W = args[1].shape[:2]
+        assert torch.equal(work, slab_items(args[2].cpu(), args[3].cpu(), H,
+                                            W))
+
+
+def test_slab_launch_shape(cuda):
+    """The tile kernel: one producer warp beside the consumers, the tile
+    of SLAB_TILE, its stage and barriers in dynamic shared memory, the grid
+    min(E, blocks per SM x SMs)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    rows, cap, warps, blocks, unit_rows, unit, npass = cp.SLAB_TILE
+    sh = cp.slab_shape(1)
+    assert (sh['rows'], sh['cap'], sh['warps'], sh['unit_rows'], sh['unit'],
+            sh['pass']) == (rows, cap, warps, unit_rows, unit, npass)
+    assert sh['threads'] == 32 * (warps + 1)
+    assert sh['smem'] == cp.slab_smem()
+    assert 1 <= sh['resident'] <= blocks
+    full = sh['resident'] * sms
+    for E in (1, 7, full - 1, full, full + 1, 49152):
+        assert cp.slab_shape(E)['grid'] == min(E, full), E
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
@@ -501,4 +617,13 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                                  dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         cp.slab(g9, f1, by1, bx1)
+    fmap = f1[0]
+    with pytest.raises(TypeError):
+        cp.slab(g9.float(), fmap, by1, bx1)
+    with pytest.raises(TypeError):
+        cp.slab(g9, fmap.cpu(), by1, bx1)
+    with pytest.raises(ValueError):
+        cp.slab(g9, fmap, by1.long(), bx1)
+    with pytest.raises(ValueError):
+        cp.slab(g9, fmap, by1[:-1], bx1)
     assert cp.launches == before

@@ -30,7 +30,8 @@ Phases (any failure raises, so the exit code is non-zero):
   4. DeviceVO main path: dpvo_torch.runtime.DPVO with config/default.yaml at
      640x480 and the full-width VONet (artifacts/micro_vonet.npz), 40
      synthetic frames + terminate(); K1 must cover every update iteration;
-     wall, device busy, idle share and top kernels from a profiler trace;
+     wall, device busy, idle share and top kernels from a profiler trace,
+     bytes uploaded per frame; colors() of the keyframes;
   5. hybrid main path: the same with CENTROID_SEL_STRAT=GRADIENT_BIAS
      (HybridVO) and DPVO_CORR_IMPL=fused_k, 40 frames + terminate(); K2 and
      K3 must cover every update iteration; the same measurements; then
@@ -61,7 +62,23 @@ Phases (any failure raises, so the exit code is non-zero):
      device time (back-to-back launches) and its share of the bound, and
      its work items, read back likewise (corr_probes.slab_work) and
      checked: every edge in one item of at most SLAB_TILE's cap, tiles of
-     at most its rows, at most 0.25 GB of them per call.
+     at most its rows, at most 0.25 GB of them per call;
+  9. DeviceVO on UPLOAD_FORMAT=yuv420 as in phase 4 (I420 planes packed
+     on the host, turned into RGB on the device), per frame and through
+     track_frames in chunks of 8: K1 must cover every update iteration of
+     both, chunked poses within 1e-3 of per-frame ones, the first 16
+     frames on CUDA and on the CPU within 1e-2; the host's rgb_to_i420
+     time at 640x480; wall, device busy, idle share and bytes uploaded per
+     frame of both, beside phase 4's rgb run, with the card's name and
+     power limit;
+ 10. HybridVO on yuv420 at 256x320, bf16, onepass: CUDA vs CPU poses
+     within 1e-2, K1 launched;
+ 11. accuracy on the card (dpvo_torch/accuracy.py), f32: trained weights
+     (artifacts/micro_vonet.npz) on make_sequence(1234, T=25, 64x96) in
+     rgb and yuv420 against seeded random weights: trained ATE < 0.15 x
+     the path and < 0.5 x random, yuv420 < rgb + 0.05 x the path, K1
+     launched; the oracle keyframe-removal scene: >= 3 removals, ATE <
+     0.01 x the path.
 The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
@@ -416,13 +433,18 @@ CORR_KERNELS = (('K1', 'corr_box_kernel'), ('K2', 'corr_planes_ring'),
                 ('K3', 'corr_select_kernel'))
 
 
-def main_path(dev, label, corr_impl, n_frames=40, measure=True, **overrides):
+def main_path(dev, label, corr_impl, n_frames=40, measure=True, chunk=None,
+              **overrides):
     """DPVO at 640x480 with default.yaml (+ overrides) and the full-width
     VONet: n_frames + terminate(), launch counts set to 0 just before and
-    read just after. With measure, frames 10..n-11 give the wall time and
-    frames n-10..n-1 a profiler trace. Returns (launches, update
-    iterations, {wall, busy, idle: ms per frame and share; K1, K2, K3: the
-    correlation kernels' device ms per frame}, empty without measure)."""
+    read just after. Frames go one by one, or with chunk = K through
+    DeviceVO.track_frames, K per call. With measure, the calls that start
+    at frames 10 .. (the traced ones) give the wall time per frame and the
+    calls from frame n-10 on (the first call starting there) a profiler
+    trace. Returns (launches, update iterations, {poses; h2d: bytes
+    uploaded per frame (DeviceVO); with measure, wall, busy, idle: ms per
+    frame and share; K1, K2, K3: the correlation kernels' device ms per
+    frame})."""
     import torch
     from dpvo_torch.config import cfg as base_cfg
 
@@ -434,26 +456,33 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, **overrides):
     frames = synthetic_frames(n_frames, H, W, seed=0)
     intr = np.array([460.0, 460.0, W / 2, H / 2], np.float32)
     slam = make_slam(cfg, H, W, dev, corr_impl)
-    print(f'  {label}: {type(slam).__name__}, DPVO_CORR_IMPL={corr_impl}',
-          flush=True)
+    print(f'  {label}: {type(slam).__name__}, DPVO_CORR_IMPL={corr_impl}'
+          f'{f", chunks of {chunk} frames" if chunk else ""}', flush=True)
 
+    K = chunk or 1
+    starts = range(0, n_frames, K)
+    trace_start = (min(t for t in starts if t >= n_frames - 10) if measure
+                   else n_frames)
     reset_launches()
     walls = []
-    trace_frames = range(n_frames - 10 if measure else n_frames, n_frames)
     with tempfile.TemporaryDirectory() as tmp:
         from torch.profiler import ProfilerActivity, profile
         prof = None
-        for t, img in enumerate(frames):
-            if t == trace_frames.start:
+        for t in starts:
+            ts = list(range(t, min(t + K, n_frames)))
+            if t == trace_start:
                 torch.cuda.synchronize()
                 prof = profile(activities=[ProfilerActivity.CPU,
                                            ProfilerActivity.CUDA])
                 prof.__enter__()
                 t_trace = time.perf_counter()
             t0 = time.perf_counter()
-            slam(t, img, intr)
+            if chunk:
+                slam.track_frames(ts, np.stack(frames[t:t + K]), intr)
+            else:
+                slam(t, frames[t], intr)
             torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+            walls.append((t, (time.perf_counter() - t0) / len(ts)))
         if prof is not None:
             wall_trace = time.perf_counter() - t_trace
             prof.__exit__(None, None, None)
@@ -474,27 +503,34 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, **overrides):
     edges = f', live edges {len(slam.ii)}' if hasattr(slam, 'ii') else ''
     print(f'  {n_frames} frames + terminate(): keyframes n = {slam.n}'
           f'{edges}, launches {launches} (update iterations = {expected})')
+    stats = dict(poses=poses, h2d=(slam.h2d_bytes / n_frames
+                                   if hasattr(slam, 'h2d_bytes') else None))
+    if hasattr(slam, 'colors'):
+        clr = slam.colors()
+        check(clr.dtype == np.uint8 and clr.shape == (slam.n, slam.M, 3),
+              f'colors() {clr.dtype} {clr.shape}')
     if not measure:
-        return launches, expected, {}
+        return launches, expected, stats
 
-    # frames 10 .. trace start run without the profiler, whose host-side
-    # tracing slows every launch: they give the wall time and frames/s
-    steady = walls[10:trace_frames.start]
+    # the calls from frame 10 to the trace start run without the profiler,
+    # whose host-side tracing slows every launch: they give the wall time
+    # and frames/s
+    steady = [w for t, w in walls if 10 <= t < trace_start]
     wall_ms = 1e3 * float(np.median(steady))
     q25, q75 = (1e3 * float(q) for q in np.percentile(steady, [25, 75]))
-    print(f'  steady-state wall per frame (median of frames 10..'
-          f'{trace_frames.start - 1}, host clock with sync): '
+    print(f'  steady-state wall per frame (median over the calls of frames '
+          f'10..{trace_start - 1}, host clock with sync): '
           f'{wall_ms!r} ms (quartiles {q25!r}, {q75!r}) -> '
           f'{1e3 / wall_ms!r} frames/s')
-    stats = dict(wall=wall_ms, busy=None, idle=None)
+    stats.update(wall=wall_ms, busy=None, idle=None)
     if busy > 0:
-        nf = len(trace_frames)
+        nf = n_frames - trace_start
         busy_ms = busy / nf
         stats.update(busy=busy_ms, idle=1.0 - busy_ms / wall_ms)
         for key, name in CORR_KERNELS:
             stats[key] = sum(v for k, v in by_name.items() if name in k) / nf
         print(f'  device busy per frame (profiler, frames '
-              f'{trace_frames.start}..{n_frames - 1}): {busy_ms!r} ms; '
+              f'{trace_start}..{n_frames - 1}): {busy_ms!r} ms; '
               f'idle share of the unprofiled wall {1.0 - busy_ms / wall_ms!r}; '
               f'traced wall per frame {1e3 * wall_trace / nf!r} ms; '
               f'{n_ops / nf!r} device ops per frame, '
@@ -509,7 +545,14 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, **overrides):
     return launches, expected, stats
 
 
-def small_cpu_vs_cuda(dev):
+GB = dict(CENTROID_SEL_STRAT='GRADIENT_BIAS')
+SMALL_RUNS = (('DeviceVO', (64, 96), 'onepass', {}, ('corr_onepass',)),
+              ('HybridVO', (256, 320), 'onepass', GB, ('corr_onepass',)),
+              ('HybridVO', (256, 320), 'fused_k', GB,
+               ('corr_planes', 'corr_select')))
+
+
+def small_cpu_vs_cuda(dev, runs=SMALL_RUNS, precisions=(False, True)):
     """The runtimes on CUDA (kernels) and on the CPU (plain versions), f32,
     same frames and seed: the poses must agree, and the CUDA run must have
     launched its correlation kernels. DeviceVO at 64x96 (K1 vs ops/corr.py;
@@ -522,13 +565,9 @@ def small_cpu_vs_cuda(dev):
     correlation maps in bf16 on both sides, with sums in another order."""
     from dpvo_torch.config import cfg as base_cfg
 
-    gb = dict(CENTROID_SEL_STRAT='GRADIENT_BIAS')
-    runs = (('DeviceVO', (64, 96), 'onepass', {}, ('corr_onepass',)),
-            ('HybridVO', (256, 320), 'onepass', gb, ('corr_onepass',)),
-            ('HybridVO', (256, 320), 'fused_k', gb,
-             ('corr_planes', 'corr_select')))
-    for (label, (H, W), impl, extra, kernels), (mixed, tol) in \
-            itertools.product(runs, ((False, 1e-3), (True, 1e-2))):
+    for (label, (H, W), impl, extra, kernels), mixed in \
+            itertools.product(runs, precisions):
+        tol = 1e-2 if mixed else 1e-3
         cfg = base_cfg.clone()
         cfg.merge_from_file(CONFIG)
         cfg.PATCHES_PER_FRAME = 8
@@ -554,9 +593,105 @@ def small_cpu_vs_cuda(dev):
               f'{err}')
         check(all(launches[k] > 0 for k in kernels),
               f'{label} {impl} on CUDA: launches {launches}')
-        print(f'  {label} {H}x{W} {prec}, 16 frames, {impl}: max |pose CUDA '
-              f'- pose CPU| = {err!r} (bound {tol!r}; n = {slam.n}; CUDA '
-              f'launches {launches})', flush=True)
+        up = f', {extra["UPLOAD_FORMAT"]}' if 'UPLOAD_FORMAT' in extra else ''
+        print(f'  {label} {H}x{W} {prec}, 16 frames, {impl}{up}: max |pose '
+              f'CUDA - pose CPU| = {err!r} (bound {tol!r}; n = {slam.n}; '
+              f'CUDA launches {launches})', flush=True)
+
+
+def first_frames_poses(dev, n_frames=16, **overrides):
+    """DeviceVO as in main_path, yuv420, the first n_frames on `dev`: the
+    keyframe count and keyframe poses after them (no terminate())."""
+    from dpvo_torch.config import cfg as base_cfg
+    H, W = 480, 640
+    cfg = base_cfg.clone()
+    cfg.merge_from_file(CONFIG)
+    for k, v in overrides.items():
+        cfg[k] = v
+    slam = make_slam(cfg, H, W, dev, 'onepass')
+    intr = np.array([460.0, 460.0, W / 2, H / 2], np.float32)
+    for t, img in enumerate(synthetic_frames(n_frames, H, W, seed=0)):
+        slam(t, img, intr)
+    return slam.n, slam.st.poses[:slam.n].cpu().numpy()
+
+
+def ingest_and_chunks(dev, smi, rgb):
+    """Phase 9: DeviceVO on yuv420 at 640x480, per frame and through
+    track_frames in chunks of 8, each with K1 on every update iteration;
+    chunked poses within 1e-3 of the per-frame ones (the same math frame
+    by frame); the first 16 frames on CUDA and on the CPU within 1e-2
+    (bf16, phase 7's bound). Prints wall, busy, idle and bytes uploaded
+    per frame beside phase 4's rgb run (`rgb`) of this call."""
+    yuv = dict(UPLOAD_FORMAT='yuv420')
+    runs = {'rgb per frame (phase 4)': rgb}
+    for label, chunk in (('yuv420 per frame', None),
+                         ('yuv420 chunks of 8', 8)):
+        launches, iters, st = main_path(dev, f'default.yaml, {label}',
+                                        'onepass', chunk=chunk, **yuv)
+        check(launches['corr_onepass'] >= iters, f'{label}: K1 launched '
+              f'{launches["corr_onepass"]} times, expected >= {iters}')
+        runs[label] = st
+    err = float(np.abs(runs['yuv420 chunks of 8']['poses'] -
+                       runs['yuv420 per frame']['poses']).max())
+    check(err <= 1e-3, f'chunked vs per-frame poses differ by {err}')
+    print(f'  yuv420: max |pose chunked - pose per frame| = {err!r} '
+          f'(bound 1e-3)', flush=True)
+    t0 = time.perf_counter()
+    (n_gpu, p_gpu), (n_cpu, p_cpu) = (first_frames_poses(d, **yuv)
+                                      for d in (dev, 'cpu'))
+    err = float(np.abs(p_gpu - p_cpu).max()) if n_gpu == n_cpu else np.inf
+    check(err <= 1e-2, f'yuv420 CUDA vs CPU over 16 frames: n {n_gpu} / '
+          f'{n_cpu}, poses differ by {err}')
+    print(f'  yuv420, first 16 frames, bf16: max |pose CUDA - pose CPU| = '
+          f'{err!r} over {n_gpu} keyframes (bound 1e-2; '
+          f'{time.perf_counter() - t0:.1f} s)', flush=True)
+    from dpvo_torch.runtime.i420 import rgb_to_i420
+    img = synthetic_frames(1, 480, 640, seed=0)[0]
+    host = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        rgb_to_i420(img)
+        host.append(1e3 * (time.perf_counter() - t0))
+    print(f'  host rgb_to_i420 at 640x480: {float(np.median(host))!r} ms '
+          f'(median of 20; min {min(host)!r})', flush=True)
+    print(f'  {smi}:')
+    for label, st in runs.items():
+        print(f'    {label}: wall {st["wall"]!r} ms/frame, device busy '
+              f'{st["busy"]!r} ms/frame, idle share {st["idle"]!r}, '
+              f'{st["h2d"]!r} bytes uploaded per frame', flush=True)
+
+
+def accuracy_on_card(dev):
+    """Phase 11: the accuracy gates of dpvo_torch.accuracy on CUDA in f32:
+    the learned run (artifacts/micro_vonet.npz) on make_sequence(1234,
+    T=25, 64x96) in rgb and in yuv420 against seeded random weights, K1
+    launched in each trained run; then the oracle keyframe-removal scene
+    (at least 3 removals, ATE < 0.01 x the path)."""
+    from dpvo_torch import accuracy as acc
+    from dpvo_torch.data_readers.synthetic import make_sequence
+    seq = make_sequence(1234, T=25, H=64, W=96, step=0.12)
+    ate = {}
+    for net, up in ((WEIGHTS, 'rgb'), (WEIGHTS, 'yuv420'), (None, 'rgb')):
+        reset_launches()
+        ate[net, up], path = acc.learned_ate(net, seq, device=dev, upload=up)
+        k1 = read_launches()['corr_onepass']
+        check(k1 > 0, f'learned run {up}: K1 never launched')
+        print(f'  learned ATE, {"trained" if net else "random"} weights, '
+              f'{up}: {ate[net, up]!r} (path {path!r}; K1 launches {k1})',
+              flush=True)
+    trained, yuv, rand = (ate[WEIGHTS, 'rgb'], ate[WEIGHTS, 'yuv420'],
+                          ate[None, 'rgb'])
+    check(trained < 0.15 * path, f'trained ATE {trained} >= 0.15 x {path}')
+    check(trained < 0.5 * rand, f'trained ATE {trained} >= 0.5 x {rand}')
+    check(yuv < 0.15 * path and yuv < trained + 0.05 * path,
+          f'yuv420 ATE {yuv} against rgb {trained}, path {path}')
+    r = acc.oracle_removal(dev)
+    removed = acc.ORACLE_FRAMES - r['keyframes']
+    check(removed >= 3 and r['ate'] < 0.01 * r['path'],
+          f'oracle removal: {removed} removed, ATE {r["ate"]} (path '
+          f'{r["path"]})')
+    print(f'  oracle keyframe removal: {removed} removals, ATE {r["ate"]!r} '
+          f'(path {r["path"]!r}, bar {0.01 * r["path"]!r})', flush=True)
 
 
 def check_items(where, items, E, cap, max_pos):
@@ -662,14 +797,14 @@ def main():
     dev = torch.device('cuda')
     name = torch.cuda.get_device_name(0)
 
-    print('[1/8] environment', flush=True)
+    print('[1/11] environment', flush=True)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f'  torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.device_count()} device(s): {name}')
 
-    print('[2/8] build', flush=True)
+    print('[2/11] build', flush=True)
     from concurrent.futures import ThreadPoolExecutor
     from dpvo_torch.ops import corr_fused, corr_onepass, corr_probes
     t0 = time.perf_counter()
@@ -743,7 +878,7 @@ def main():
               f'SM; ring of {sh["stages"]} stages x {sh["rows"]} rows, '
               f'{sh["warps"]} consumer warps')
 
-    print('[3/8] kernels vs plain', flush=True)
+    print('[3/11] kernels vs plain', flush=True)
     err, k_ms, p_ms, b1, staged = kernel_vs_plain(
         dev, E=49152, F=36, H1=120, W1=160, Ng=36 * 96, nv=40013, seed=0,
         timed=True)
@@ -758,12 +893,12 @@ def main():
           f'{streamed / 1e9!r} GB ({streamed / k2[1] / 1e9!r} TB/s)',
           flush=True)
 
-    print('[4/8] DeviceVO main path', flush=True)
-    dv, dv_iters, _ = main_path(dev, 'default.yaml', 'onepass')
+    print('[4/11] DeviceVO main path', flush=True)
+    dv, dv_iters, dv_stats = main_path(dev, 'default.yaml', 'onepass')
     check(dv['corr_onepass'] >= dv_iters, f'K1 launched '
           f'{dv["corr_onepass"]} times, expected >= {dv_iters}')
 
-    print('[5/8] hybrid main path', flush=True)
+    print('[5/11] hybrid main path', flush=True)
     hy, hy_iters, hy_stats = main_path(dev, 'default.yaml + GRADIENT_BIAS',
                                        'fused_k',
                                        CENTROID_SEL_STRAT='GRADIENT_BIAS')
@@ -786,7 +921,7 @@ def main():
               f'{st["busy"]!r}, idle {st["idle"]!r}; correlation ms/frame: '
               f'{corr}', flush=True)
 
-    print('[6/8] DeviceVO with fused_k', flush=True)
+    print('[6/11] DeviceVO with fused_k', flush=True)
     dk, dk_iters, _ = main_path(dev, 'default.yaml', 'fused_k', n_frames=12,
                                 measure=False)
     check(dk['corr_planes'] >= dk_iters and
@@ -794,11 +929,22 @@ def main():
           f'K2 / K3 launched {dk}, expected >= {dk_iters} / '
           f'{2 * dk_iters}')
 
-    print('[7/8] CUDA vs CPU', flush=True)
+    print('[7/11] CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev)
 
-    print('[8/8] correlation probes', flush=True)
+    print('[8/11] correlation probes', flush=True)
     probe_entries = probes()
+
+    print('[9/11] DeviceVO on yuv420, per frame and chunked', flush=True)
+    ingest_and_chunks(dev, smi, dv_stats)
+
+    print('[10/11] HybridVO on yuv420, CUDA vs CPU', flush=True)
+    small_cpu_vs_cuda(dev, runs=(
+        ('HybridVO', (256, 320), 'onepass', dict(GB, UPLOAD_FORMAT='yuv420'),
+         ('corr_onepass',)),), precisions=(True,))
+
+    print('[11/11] accuracy on the card', flush=True)
+    accuracy_on_card(dev)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return dict(name=name, route='cuda', source=source,

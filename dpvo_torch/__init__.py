@@ -15,7 +15,11 @@ Layer map (module names mirror dpvo_tpu/):
   models/               encoders + VONet (nn.Modules), checkpoint loading
   ba_pairs.py, ba.py    Gauss-Newton bundle adjustment: pair-blocked
                         (DeviceVO) and edge-wise (HybridVO)
-  runtime/              DeviceVO, HybridVO and the DPVO constructor
+  runtime/              DeviceVO, HybridVO and the DPVO constructor; I420
+                        packing for the yuv420 upload (i420.py)
+  accuracy.py           the accuracy gates' runs (learned and oracle ATE)
+  evaluation.py         Sim3-aligned ATE (numpy)
+  data_readers/         synthetic scenes with exact ground truth (numpy)
 """
 
 __version__ = '0.1.0'

@@ -15,6 +15,12 @@ and read one scalar back (a device sync each):
   * the keyframe test `mflow < kf_thresh` (every frame once initialized).
 Everything else (pair append, compaction, slot allocation, the update
 and BA loop) is enqueued without a sync.
+
+Ingest (vo_frame_packed1, vo_frames_packed1): one flat uint8 upload per
+frame, [image bytes (rgb, or I420 planes turned back into RGB here by
+i420_to_rgb) | (M, 4) f32 aux bytes]. An optional target oracle (the
+accuracy tests' seam, _call_oracle) replaces the correlation and the update
+operator; the reprojection and the BA still run.
 """
 from __future__ import annotations
 
@@ -254,39 +260,69 @@ def _corr_features(st, pi_a, pj_a, pv_a, poses, depth, M, corr_dtype,
     return coords_r, corr.reshape(E, -1), inp
 
 
+def _call_oracle(oracle, st, M):
+    """Targets and weights of every pair edge from a target oracle with the
+    hybrid runtime's contract, (poses, patch_xy, depth, intr, ii, jj, kk)
+    -> ((E, 2), (E, 2)) (runtime/state.py:update_step). The pair-blocked
+    state keeps bare centers, so the edge view is synthesized: patch_xy
+    repeats each center over the P x P grid (an oracle reads only the
+    center tap), and ii / jj go through st.tstamps to input-frame indices,
+    which is what a ground-truth oracle indexes its trajectory by; they
+    equal the keyframe indices until a keyframe is removed."""
+    GP = st.pi.shape[0]
+    ar = torch.arange(M, device=st.pi.device)
+    ii = st.tstamps[st.pi].repeat_interleave(M)
+    jj = st.tstamps[st.pj].repeat_interleave(M)
+    kk = (st.pi[:, None] * M + ar).reshape(GP * M)
+    cent = st.centers.reshape(-1, 2)
+    patch_xy = cent[:, :, None, None].expand(cent.shape + (P, P))
+    intr = st.intr[None].expand(st.poses.shape[0], 4)
+    return oracle(st.poses, patch_xy, st.depth, intr, ii, jj, kk)
+
+
 def _update_ba(network, st, n1, *, M, W, PCF, iterations,
-               corr_impl='onepass'):
+               corr_impl='onepass', oracle=None):
     """`iterations` rounds of correlation + update operator + 2-step BA over
     the live pairs (the body of vo_frame's update loop and of vo_refine).
-    W = OPTIMIZATION_WINDOW: the BA's pose slots, ending at keyframe n1."""
+    W = OPTIMIZATION_WINDOW: the BA's pose slots, ending at keyframe n1.
+    With an oracle, its targets and weights replace the correlation and
+    the update operator; the net state stays as it is."""
     GP = st.pi.shape[0]
     pmem = st.gmap.shape[0] // M
-    ix_pair, jx_pair = _pair_neighbors(st.pi, st.pj, st.pvalid)
     ar = torch.arange(M, device=st.pi.device)
-    ix_e = torch.where(ix_pair[:, None] >= 0, ix_pair[:, None] * M + ar,
-                       -1).reshape(GP * M)
-    jx_e = torch.where(jx_pair[:, None] >= 0, jx_pair[:, None] * M + ar,
-                       -1).reshape(GP * M)
-    # patch groups keyed by source ring slot (unique among live frames)
-    kk_ids = (_slot_of(st.fslot, st.pi)[:, None] * M + ar).reshape(GP * M)
-    pair_ids = torch.arange(GP, device=ar.device).repeat_interleave(M)
     edge_mask = st.pvalid.repeat_interleave(M)
+    mask3 = edge_mask.reshape(GP, M, 1)
     t0 = max(n1 - W, 1)
     fbase = max(n1 - (PCF - 2), 0)
+    if oracle is None:
+        ix_pair, jx_pair = _pair_neighbors(st.pi, st.pj, st.pvalid)
+        ix_e = torch.where(ix_pair[:, None] >= 0, ix_pair[:, None] * M + ar,
+                           -1).reshape(GP * M)
+        jx_e = torch.where(jx_pair[:, None] >= 0, jx_pair[:, None] * M + ar,
+                           -1).reshape(GP * M)
+        # patch groups keyed by source ring slot (unique among live frames)
+        kk_ids = (_slot_of(st.fslot, st.pi)[:, None] * M + ar).reshape(GP * M)
+        pair_ids = torch.arange(GP, device=ar.device).repeat_interleave(M)
     for _ in range(iterations):
-        coords_r, corr_feat, inp = _corr_features(
-            st, st.pi, st.pj, st.pvalid, st.poses, st.depth, M,
-            network.dtype, corr_impl)
-        netf, delta, wgt = network.update_op(
-            st.net.reshape(GP * M, DIM), inp, corr_feat, ix_e, jx_e, kk_ids,
-            pair_ids, num_segments=GP * M, edge_mask=edge_mask,
-            num_segments_kk=pmem * M, num_segments_ij=GP,
-            gather_pairs=(ix_pair, jx_pair, M))
-        st.net = netf.reshape(GP, M, DIM)
-        center = coords_r[:, :, P // 2, P // 2, :]
-        st.target = center + delta.reshape(GP, M, 2)
-        st.weight = torch.where(edge_mask.reshape(GP, M, 1),
-                                wgt.reshape(GP, M, 2), 0.0)
+        if oracle is None:
+            coords_r, corr_feat, inp = _corr_features(
+                st, st.pi, st.pj, st.pvalid, st.poses, st.depth, M,
+                network.dtype, corr_impl)
+            netf, delta, wgt = network.update_op(
+                st.net.reshape(GP * M, DIM), inp, corr_feat, ix_e, jx_e,
+                kk_ids, pair_ids, num_segments=GP * M, edge_mask=edge_mask,
+                num_segments_kk=pmem * M, num_segments_ij=GP,
+                gather_pairs=(ix_pair, jx_pair, M))
+            st.net = netf.reshape(GP, M, DIM)
+            center = coords_r[:, :, P // 2, P // 2, :]
+            st.target = center + delta.reshape(GP, M, 2)
+            st.weight = torch.where(mask3, wgt.reshape(GP, M, 2), 0.0)
+        else:
+            center = _reproject_pairs(st.poses, st.centers, st.depth, st.intr,
+                                      st.pi, st.pj, M)[:, :, P // 2, P // 2]
+            tgt, wgt = _call_oracle(oracle, st, M)
+            st.target = torch.where(mask3, tgt.reshape(GP, M, 2), center)
+            st.weight = torch.where(mask3, wgt.reshape(GP, M, 2), 0.0)
         st.poses, st.depth = bundle_adjust_pairs(
             st.poses, st.centers, st.depth, st.intr, st.target, st.weight,
             1e-4, st.pi, st.pj, st.pvalid, t0, n1, fbase,
@@ -300,12 +336,14 @@ def _update_ba(network, st, n1, *, M, W, PCF, iterations,
 @torch.no_grad()
 def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
              removal_window, kf_thresh, motion_damping, motion_model,
-             force_accept=False, corr_impl='onepass'):
+             force_accept=False, corr_impl='onepass', oracle=None):
     """Track one frame (reference dpvo.py:377-473); updates `st` in place.
 
-    image (H, W, 3) uint8 tensor on the state's device; aux (M, 4) f32
-    [x, y, depth seed, tstamp] (patch centroids at 1/4 scale, the frame's
-    depth seeds, its timestamp in every row)."""
+    image (H, W, 3) on the state's device, uint8 or f32 in [0, 255]
+    (i420_to_rgb's output); aux (M, 4) f32 [x, y, depth seed, tstamp]
+    (patch centroids at 1/4 scale, the frame's depth seeds, its timestamp
+    in every row). oracle: see _update_ba; pair it with force_accept (the
+    motion probe still runs the learned network)."""
     n = st.n
     N = st.poses.shape[0]
     GP = st.pi.shape[0]
@@ -419,7 +457,7 @@ def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
     # ---- update iterations (12 at bootstrap, 1 once initialized) ---- #
     iters = 12 if bootstrap else (1 if st.is_init else 0)
     _update_ba(network, st, n1, M=M, W=W, PCF=PCF, iterations=iters,
-               corr_impl=corr_impl)
+               corr_impl=corr_impl, oracle=oracle)
     st.n = n1
 
     # ---- keyframe decision (dpvo.py:266-310) ---- #
@@ -451,9 +489,91 @@ def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
 
 
 @torch.no_grad()
-def vo_refine(network, st, *, M, W, PCF, corr_impl='onepass'):
+def vo_refine(network, st, *, M, W, PCF, corr_impl='onepass', oracle=None):
     """One update + BA iteration over the existing pairs (terminate() runs
     this 12 times — reference dpvo.py:181-183)."""
     _update_ba(network, st, st.n, M=M, W=W, PCF=PCF, iterations=1,
-               corr_impl=corr_impl)
+               corr_impl=corr_impl, oracle=oracle)
+    return st
+
+
+# ---------------------------------------------------------------------------
+# ingest and the chunked step
+# ---------------------------------------------------------------------------
+
+def i420_to_rgb(planes, ht, wd):
+    """I420 planes (flat uint8: Y (ht, wd), then U and V (ht/2, wd/2)) ->
+    (ht, wd, 3) f32 RGB in [0, 255]: video-range BT.601 with 2x2 nearest
+    chroma, as dpvo_tpu/runtime/device_vo.py:_i420_to_rgb; within one unit
+    of cv2.COLOR_YUV2RGB_I420, which rounds to uint8."""
+    n = ht * wd
+    q = n // 4
+    y = planes[:n].reshape(ht, wd).float()
+
+    def up2(c):                                   # 2x2 nearest upsample
+        c = c.reshape(ht // 2, 1, wd // 2, 1).float() - 128.0
+        return c.expand(ht // 2, 2, wd // 2, 2).reshape(ht, wd)
+
+    U, V = up2(planes[n:n + q]), up2(planes[n + q:n + 2 * q])
+    yv = 1.164 * (y - 16.0)
+    r = yv + 1.596 * V
+    g = yv - 0.392 * U - 0.813 * V
+    b = yv + 2.017 * U
+    return torch.stack([r, g, b], dim=-1).clamp(0.0, 255.0)
+
+
+def unpack_frame(buf, *, ht, wd, M, upload='rgb'):
+    """(image, aux) of one flat uint8 upload row [image bytes (rgb: 3,
+    yuv420: 1.5 per pixel) | (M, 4) f32 aux bytes]. The aux bytes are
+    reinterpreted in place where their offset in the storage is a multiple
+    of 4, else copied first."""
+    npix = ht * wd * 3 if upload == 'rgb' else ht * wd * 3 // 2
+    if upload == 'rgb':
+        image = buf[:npix].view(ht, wd, 3)
+    else:
+        image = i420_to_rgb(buf[:npix], ht, wd)
+    tail = buf[npix:npix + 16 * M]
+    if tail.storage_offset() % 4:
+        tail = tail.clone()
+    return image, tail.view(torch.float32).view(M, 4)
+
+
+def vo_frame_packed1(network, st, buf, *, ht, wd, upload='rgb', **kw):
+    """vo_frame from one flat uint8 upload (dpvo_tpu's vo_frame_packed1),
+    laid out as unpack_frame reads it."""
+    image, aux = unpack_frame(buf, ht=ht, wd=wd, M=kw['M'], upload=upload)
+    return vo_frame(network, st, image, aux, **kw)
+
+
+def vo_frames(network, st, images, coords, depth_seeds, tstamps, **kw):
+    """Track a chunk of K frames: vo_frame over each, in order (dpvo_tpu's
+    vo_frames). images (K, H, W, 3); coords (K, M, 2) f32; depth_seeds
+    (K, M) f32; tstamps (K,) f32.
+
+    The math is vo_frame's, frame by frame, and so are its host reads: the
+    motion probe's before initialization (without force_accept) and the
+    keyframe test's every initialized frame each read one scalar back.
+    What a chunk saves on this runtime is uploads (one per K frames), not
+    launches."""
+    M = kw['M']
+    for k in range(images.shape[0]):
+        aux = torch.cat([coords[k], depth_seeds[k][:, None],
+                         tstamps[k].reshape(1, 1).expand(M, 1)], dim=1)
+        st = vo_frame(network, st, images[k], aux, **kw)
+    return st
+
+
+def vo_frames_packed(network, st, images, aux, **kw):
+    """vo_frames with the per-frame aux packed as (K, M, 4)."""
+    for k in range(images.shape[0]):
+        st = vo_frame(network, st, images[k], aux[k], **kw)
+    return st
+
+
+def vo_frames_packed1(network, st, bufs, *, ht, wd, upload='rgb', **kw):
+    """vo_frames over the rows of one (K, row bytes) uint8 upload, each
+    row laid out as vo_frame_packed1's buf."""
+    for buf in bufs:
+        st = vo_frame_packed1(network, st, buf, ht=ht, wd=wd, upload=upload,
+                              **kw)
     return st

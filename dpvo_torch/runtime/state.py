@@ -10,8 +10,7 @@ BA iteration (`update_step`); it returns one packed vector of host mirrors.
 
 Edge capacities are bucketed (`edge_bucket`) as in dpvo_tpu. Row gathers
 are index_select; dpvo_tpu's one-hot / remapped gathers were TPU
-workarounds. The JAX package's I420 ingest and oracle seam are not ported
-(ROADMAP.md). Keyframe removal moves whole frames of patch rows
+workarounds. Keyframe removal moves whole frames of patch rows
 (patch_xy, depth); dpvo_tpu's shift_frames rolls those flat buffers by one
 patch instead (ROADMAP.md queue 3).
 """
@@ -26,7 +25,7 @@ from ..ba import bundle_adjust
 from ..models.vonet import DIM, P
 from ..ops.corr_fused import corr_fused
 from ..ops.corr_onepass import corr_two_level
-from .device_vo import _median
+from .device_vo import _median, i420_to_rgb
 
 # edge-table rows (dpvo_tpu's row 11, the loop-closure ring remap, is gone)
 II, JJ, KK, KK_SLOT, JJ_SLOT, IX, JX, KK_IDS, PAIR_IDS, MASK, PERM = range(11)
@@ -145,26 +144,37 @@ def _corr_features(st, tab, coords, corr_mode):
 
 
 def update_step(network, st, tab, t0, t1, patch_base, *, W, PC,
-                iterations=2, run_ba=True, corr_mode='fused', net=None):
+                iterations=2, run_ba=True, corr_mode='fused', net=None,
+                oracle=None):
     """One correlation + update + BA iteration over the padded edge table
     (reference DPVO.update, dpvo.py:328-360).
 
     tab (11, cap) int64 edge table on the device (rows: see TABLE_ROWS);
     net: the edges' hidden state (default st.net); host ints t0, t1 (pose
     window [t0, t1)), patch_base (first patch of the depth window). With
-    run_ba, st.poses / st.depth are updated. Returns (net, target, weight,
-    delta)."""
+    run_ba, st.poses / st.depth are updated. oracle: an optional callable
+    (poses, patch_xy, depth, intr, ii, jj, kk) -> (target (E, 2), weight
+    (E, 2)) that replaces the correlation and the update operator; the net
+    state then stays as it is. Returns (net, target, weight, delta)."""
     mask = tab[MASK].bool()
     ii, jj, kk = tab[II], tab[JJ], tab[KK]
     coords = _reproject(st.poses, st.patch_xy, st.depth, st.intr, ii, jj, kk)
-    corr = _corr_features(st, tab, coords, corr_mode)
-    inp = st.imap.index_select(0, tab[KK_SLOT])
-    E = ii.shape[0]
-    net, delta, weight = network.update_op(
-        st.net if net is None else net, inp, corr, tab[IX], tab[JX],
-        tab[KK_IDS], tab[PAIR_IDS], num_segments=E, edge_mask=mask)
-    target = coords[:, P // 2, P // 2, :] + delta
-    weight = torch.where(mask[:, None], weight, 0.0)
+    center = coords[:, P // 2, P // 2, :]
+    net = st.net if net is None else net
+    if oracle is None:
+        corr = _corr_features(st, tab, coords, corr_mode)
+        inp = st.imap.index_select(0, tab[KK_SLOT])
+        net, delta, weight = network.update_op(
+            net, inp, corr, tab[IX], tab[JX], tab[KK_IDS], tab[PAIR_IDS],
+            num_segments=ii.shape[0], edge_mask=mask)
+        target = center + delta
+        weight = torch.where(mask[:, None], weight, 0.0)
+    else:
+        tgt, wgt = oracle(st.poses, st.patch_xy, st.depth, st.intr, ii, jj,
+                          kk)
+        target = torch.where(mask[:, None], tgt, center)
+        weight = torch.where(mask[:, None], wgt, 0.0)
+        delta = target - center
     if run_ba:
         st.poses, st.depth = bundle_adjust(
             st.poses, st.patch_xy[:, :, P // 2, P // 2], st.depth, st.intr[0],
@@ -184,7 +194,7 @@ def frame_step(network, st, image, coords, tab, pose_init, intr_row,
                depth_init, n, imap_slot, fmap_slot, t0, patch_base, kf_k,
                motion_fac=1.0, *, W, PC, M, pmem, mem, iterations=2,
                run_ba=True, do_update=True, corr_mode='fused',
-               device_init=None):
+               device_init=None, oracle=None):
     """Everything the device does for one tracked frame, in order:
     (a) the previous frame's deferred removal of keyframe kf_k (>= 0; the
     host already counts one frame less, so n + 1 frames existed),
@@ -196,7 +206,8 @@ def frame_step(network, st, image, coords, tab, pose_init, intr_row,
     the median depth init from the device state after (a), which the host
     mirrors may not have seen yet (motion_fac carries the host-known
     timestamp ratio); None takes the host's pose_init / depth_init.
-    image (H, W, 3) uint8 and coords (M, 2) on the device. Returns the
+    image (H, W, 3) uint8, or the (3H/2, W) uint8 I420 plane stack, and
+    coords (M, 2) on the device; oracle: see update_step. Returns the
     packed mirror (pose window [t0, t0 + W + 2), depth window [patch_base,
     + PC), the frame's colors; starts clamped into the buffers) and delta."""
     if kf_k >= 0:
@@ -217,6 +228,9 @@ def frame_step(network, st, image, coords, tab, pose_init, intr_row,
     st.target = gather_rows(st.target, perm)
     st.weight = gather_rows(st.weight, perm)
 
+    if image.dim() == 2:
+        ht, wd = image.shape[0] * 2 // 3, image.shape[1]
+        image = i420_to_rgb(image.reshape(-1), ht, wd)
     dt = network.dtype
     # f32 normalization, as dpvo_tpu's hybrid does (the encoders cast)
     feats = network.patchify_frame(2.0 * (image.float() / 255.0) - 0.5,
@@ -234,7 +248,8 @@ def frame_step(network, st, image, coords, tab, pose_init, intr_row,
     if do_update:
         st.net, st.target, st.weight, delta = update_step(
             network, st, tab, t0, n + 1, patch_base, W=W, PC=PC,
-            iterations=iterations, run_ba=run_ba, corr_mode=corr_mode)
+            iterations=iterations, run_ba=run_ba, corr_mode=corr_mode,
+            oracle=oracle)
 
     N = st.poses.shape[0]
     ps = min(t0, N - (W + 2))

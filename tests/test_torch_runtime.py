@@ -19,6 +19,7 @@ with MIXED_PRECISION off every op is f32 on both sides with sums in another
 order, the trajectories agree to ~5e-5 over 16 frames, and the bound is
 1e-3. With it on (bf16 convs, GEMMs and feature maps) each side rounds at
 its own places; they agree to ~1.5e-3 and the bound is 1e-2."""
+import contextlib
 import os
 
 import numpy as np
@@ -37,6 +38,28 @@ H, W = 64, 96
 INTR = np.array([60.0, 60.0, W / 2, H / 2], np.float32)
 POSE_TOL = 1e-3
 POSE_TOL_BF16 = 1e-2
+
+
+@contextlib.contextmanager
+def torch_threads(n):
+    """Run torch's CPU ops on n threads inside the block. The suite runs
+    several test processes at once; with every process's intra-op pool as
+    wide as the machine, the runtimes' many small parallel ops wait for
+    their threads most of the time."""
+    import torch
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
+
+
+@pytest.fixture(scope='module')
+def one_torch_thread():
+    """A whole module's torch ops on one thread (torch_threads)."""
+    with torch_threads(1):
+        yield
 
 
 def _frames(n, seed=0, step=(3, 2)):
@@ -72,7 +95,7 @@ def _run_jax(frames, force_accept, **kw):
         vo(t, img, INTR)
     n, counter = int(fetch(vo.st.n)), int(fetch(vo.st.counter))
     poses, _ = vo.terminate()
-    return poses, n, counter
+    return poses, n, counter, vo.colors()
 
 
 def _run_torch(frames, force_accept, **kw):
@@ -86,19 +109,24 @@ def _run_torch(frames, force_accept, **kw):
     assert np.array_equal(tstamps, np.arange(len(frames)))
     pts = vo.point_cloud()
     assert pts.shape == (n * vo.M, 3) and np.isfinite(pts).all()
-    return poses, n, counter
+    clr = vo.colors()
+    assert clr.shape == (n, vo.M, 3) and clr.dtype == np.uint8
+    return poses, n, counter, clr
 
 
 def _check_slice(mixed):
     frames = _frames(16)
-    jp, jn, jc = _run_jax(frames, True, MIXED_PRECISION=mixed)
-    tp, tn, tc = _run_torch(frames, True, MIXED_PRECISION=mixed)
+    jp, jn, jc, jclr = _run_jax(frames, True, MIXED_PRECISION=mixed)
+    tp, tn, tc, tclr = _run_torch(frames, True, MIXED_PRECISION=mixed)
     assert (tn, tc) == (jn, jc)
     assert tn <= 16 - 4                   # keyframes were removed
     assert np.isfinite(tp).all() and tp.shape == (16, 7)
     np.testing.assert_allclose(tp, jp, rtol=0,
                                atol=POSE_TOL_BF16 if mixed else POSE_TOL)
     assert np.abs(tp[:, :3]).max() > 1e-2          # the camera moved
+    # colors(): the live keyframes' patch colors, channels reversed; the
+    # float color may land on either side of an integer before the cast
+    assert np.abs(tclr.astype(int) - jclr).max() <= 1
 
 
 def test_whole_slice_matches_jax():
@@ -139,6 +167,17 @@ def test_keyframe_removal_shifts_whole_frames():
     assert torch.equal(after[n - 1:], before[n - 1:])
     assert st.fslot[:n].tolist() == [0, 1, 3, 4, 5, 5]
     assert st.poses[:n, 0].tolist() == [0, 1, 3, 4, 5, 5]
+
+
+def test_device_vo_signature_and_viz():
+    """DeviceVO takes viz fifth, as dpvo_tpu's does; the viewer is not
+    ported, so viz=True raises, naming its ROADMAP item."""
+    import inspect
+    from dpvo_torch.runtime import DeviceVO
+    assert list(inspect.signature(DeviceVO).parameters) == [
+        'cfg', 'network', 'ht', 'wd', 'viz', 'seed', 'device']
+    with pytest.raises(NotImplementedError, match='ROADMAP.md .* item C'):
+        DeviceVO(_cfg(torch_cfg), NPZ, H, W, True, device='cpu')
 
 
 def test_buffer_guard():

@@ -18,7 +18,7 @@ def test_probe_path_matches_jax():
     both sides reject all but the first, and fill the rejected frames' poses
     from the identity deltas."""
     frames = _frames(10, seed=1, step=(12, 8))
-    jp, jn, jc = _run_jax(frames, False)
-    tp, tn, tc = _run_torch(frames, False)
+    jp, jn, jc, _ = _run_jax(frames, False)
+    tp, tn, tc, _ = _run_torch(frames, False)
     assert (tn, tc) == (jn, jc) == (1, 10)
     np.testing.assert_allclose(tp, jp, atol=POSE_TOL, rtol=0)

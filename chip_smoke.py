@@ -78,7 +78,25 @@ Phases (any failure raises, so the exit code is non-zero):
      rgb and yuv420 against seeded random weights: trained ATE < 0.15 x
      the path and < 0.5 x random, yuv420 < rgb + 0.05 x the path, K1
      launched; the oracle keyframe-removal scene: >= 3 removals, ATE <
-     0.01 x the path.
+     0.01 x the path;
+ 12. DPV-SLAM's learned loop closure (HybridVO with LOOP_CLOSURE):
+     default.yaml + LOOP_CLOSURE at 640x480, the full-width VONet, bf16,
+     onepass, on make_sequence(12, T=70, 480x640, loop=True) (an
+     out-and-back path), KEYFRAME_THRESH -1 (keyframes kept, so the return
+     leg meets the outbound frames inside MAX_EDGE_AGE): loop edges
+     proposed, global BA run, K1 on every update iteration, finite poses;
+     wall, busy and idle as in phases 4-5, global BA's ms per call (device
+     busy from a profiler trace of the run's last call replayed) with its
+     edges and window, the host ms per call of proximity_edges and of
+     build_pair_tables, peak device memory. Then K1, and K2 + K3, against
+     their plain versions on a 96,000-row gmap (the 1,000-frame ring at M =
+     96) with kk over the whole ring; the LC runtime on CUDA against the
+     CPU (accuracy.lc_cfg on make_sequence(950, T=40, loop=True): 96x128
+     onepass in f32 and bf16, 256x320 fused_k in bf16; poses, the same
+     loop edges and global-BA frames, kernels launched); the loop-closure
+     ATE gates of
+     dpvo_torch/accuracy.py in f32 (oracle and learned, as
+     tests/test_torch_lc_ate.py holds them).
 The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
@@ -434,14 +452,15 @@ CORR_KERNELS = (('K1', 'corr_box_kernel'), ('K2', 'corr_planes_ring'),
 
 
 def main_path(dev, label, corr_impl, n_frames=40, measure=True, chunk=None,
-              **overrides):
+              seq=None, **overrides):
     """DPVO at 640x480 with default.yaml (+ overrides) and the full-width
-    VONet: n_frames + terminate(), launch counts set to 0 just before and
-    read just after. Frames go one by one, or with chunk = K through
+    VONet: n_frames + terminate() (or seq's frames and intrinsics, a
+    make_sequence dict), launch counts set to 0 just before and read just
+    after. Frames go one by one, or with chunk = K through
     DeviceVO.track_frames, K per call. With measure, the calls that start
     at frames 10 .. (the traced ones) give the wall time per frame and the
     calls from frame n-10 on (the first call starting there) a profiler
-    trace. Returns (launches, update iterations, {poses; h2d: bytes
+    trace. Returns (launches, update iterations, {poses; slam; h2d: bytes
     uploaded per frame (DeviceVO); with measure, wall, busy, idle: ms per
     frame and share; K1, K2, K3: the correlation kernels' device ms per
     frame})."""
@@ -453,8 +472,12 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, chunk=None,
     cfg.merge_from_file(CONFIG)
     for k, v in overrides.items():
         cfg[k] = v
-    frames = synthetic_frames(n_frames, H, W, seed=0)
-    intr = np.array([460.0, 460.0, W / 2, H / 2], np.float32)
+    if seq is None:
+        frames = synthetic_frames(n_frames, H, W, seed=0)
+        intr = np.array([460.0, 460.0, W / 2, H / 2], np.float32)
+    else:
+        frames, intr = seq['images'], seq['intrinsics']
+        n_frames = len(frames)
     slam = make_slam(cfg, H, W, dev, corr_impl)
     print(f'  {label}: {type(slam).__name__}, DPVO_CORR_IMPL={corr_impl}'
           f'{f", chunks of {chunk} frames" if chunk else ""}', flush=True)
@@ -503,7 +526,7 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, chunk=None,
     edges = f', live edges {len(slam.ii)}' if hasattr(slam, 'ii') else ''
     print(f'  {n_frames} frames + terminate(): keyframes n = {slam.n}'
           f'{edges}, launches {launches} (update iterations = {expected})')
-    stats = dict(poses=poses, h2d=(slam.h2d_bytes / n_frames
+    stats = dict(poses=poses, slam=slam, h2d=(slam.h2d_bytes / n_frames
                                    if hasattr(slam, 'h2d_bytes') else None))
     if hasattr(slam, 'colors'):
         clr = slam.colors()
@@ -694,6 +717,214 @@ def accuracy_on_card(dev):
           f'(path {r["path"]!r}, bar {0.01 * r["path"]!r})', flush=True)
 
 
+LC_RUNS = (((96, 128), 'onepass', False, ('corr_onepass',)),
+           ((96, 128), 'onepass', True, ('corr_onepass',)),
+           ((256, 320), 'fused_k', True, ('corr_planes', 'corr_select')))
+
+
+def lc_cpu_vs_cuda(dev):
+    """The LC runtime on CUDA (kernels) and on the CPU (plain versions),
+    same frames, seed and weights: accuracy.lc_cfg on make_sequence(950,
+    T=40, loop=True) with artifacts/micro_vonet.npz, at 96x128 (onepass,
+    f32 and bf16) and at 256x320 (fused_k, bf16: L2 is 16x20, so K2 + K3
+    run). The keyframe poses after the last frame and the poses terminate()
+    returns within 1e-3 (f32) or 1e-2 (bf16), the same loop-edge count and
+    global-BA frames, the CUDA run's kernels launched. (On
+    tests/test_loop_closure.py's noise frames, which accept any loop
+    candidate, terminate's 12 global BAs amplify bf16 rounding: the CPU
+    tests hold that config on its discrete outputs.)"""
+    from dpvo_torch import accuracy as acc
+    from dpvo_torch.data_readers.synthetic import make_sequence
+    for (H, W), impl, mixed, kernels in LC_RUNS:
+        tol = 1e-2 if mixed else 1e-3
+        seq = make_sequence(950, T=40, H=H, W=W, step=0.12, loop=True)
+        cfg = acc.lc_cfg(True)
+        cfg.MIXED_PRECISION = mixed
+        out = []
+        for d in (dev, 'cpu'):
+            slam = make_slam(cfg, H, W, d, impl)
+            reset_launches()
+            for t, img in enumerate(seq['images']):
+                slam(t, img, seq['intrinsics'])
+            slam._drain()
+            kf = slam.st.poses[:slam.n].cpu().numpy().copy()
+            out.append((kf, slam.terminate()[0], slam._n_loop_edges,
+                        np.flatnonzero(slam.ran_global_ba).tolist(),
+                        read_launches()))
+        (kg, pg, lg, gg, launches), (kc, pc, lc, gc, _) = out
+        err_kf = float(np.abs(kg - kc).max())
+        err = float(np.abs(pg - pc).max())
+        prec = 'bf16' if mixed else 'f32'
+        check(np.isfinite(pg).all(), f'LC {H}x{W} {prec}: poses not finite')
+        check(lg == lc and gg == gc and lg > 0, f'LC {H}x{W} {prec} {impl}: '
+              f'loop edges {lg} / {lc}, global BA at {gg} / {gc}')
+        check(err_kf <= tol and err <= tol, f'LC {H}x{W} {prec} {impl}: '
+              f'CUDA vs CPU poses differ by {err_kf} (keyframes after the '
+              f'frames), {err} (terminate)')
+        check(all(launches[k] > 0 for k in kernels),
+              f'LC {H}x{W} {impl} on CUDA: launches {launches}')
+        print(f'  LC {H}x{W} {prec}, 40 frames, {impl}: max |pose CUDA - '
+              f'pose CPU| = {err_kf!r} (keyframes after the frames), '
+              f'{err!r} (terminate) (bound {tol!r}); {lg} loop edges and '
+              f'global BA at n = {gg} on both; CUDA launches {launches}',
+              flush=True)
+
+
+def lc_gates_on_card(dev):
+    """The loop-closure gates of dpvo_torch.accuracy on CUDA in f32
+    (tests/test_torch_lc_ate.py's bars): oracle VO and LC ATE < 0.001 x
+    the path, LC <= 2 x VO + 1e-4; learned (artifacts/micro_vonet.npz) LC
+    <= 1.05 x VO + 1e-4, and < VO where VO drifts over 1% of the path, K1
+    launched; loop edges proposed in both LC runs."""
+    from dpvo_torch import accuracy as acc
+    from dpvo_torch.data_readers.synthetic import make_sequence
+    seq = make_sequence(950, T=40, H=64, W=96, step=0.12, loop=True)
+    res = {}
+    for kind, kw in (('oracle', dict(oracle=True)),
+                     ('learned', dict(network=WEIGHTS))):
+        for lc in (False, True):
+            reset_launches()
+            r = acc.lc_run(seq, lc, device=dev, **kw)
+            k1 = read_launches()['corr_onepass']
+            check(kind == 'oracle' or k1 > 0, f'{kind} run: K1 never '
+                  f'launched')
+            res[kind, lc] = r
+            print(f'  {kind} {"LC" if lc else "VO"}: ATE {r["ate"]!r} (path '
+                  f'{r["path"]!r}; loop edges {r["n_loop"]}; K1 launches '
+                  f'{k1})', flush=True)
+    (o_vo, o_lc), (l_vo, l_lc) = ((res[k, False], res[k, True])
+                                  for k in ('oracle', 'learned'))
+    path = o_lc['path']
+    check(o_lc['n_loop'] > 0 and l_lc['n_loop'] > 0, 'no loop edges')
+    check(o_vo['ate'] < 0.001 * path and o_lc['ate'] < 0.001 * path and
+          o_lc['ate'] <= 2 * o_vo['ate'] + 1e-4,
+          f'oracle gate: VO {o_vo["ate"]}, LC {o_lc["ate"]}, path {path}')
+    check(l_lc['ate'] <= 1.05 * l_vo['ate'] + 1e-4 and
+          (l_vo['ate'] <= 0.01 * path or l_lc['ate'] < l_vo['ate']),
+          f'learned gate: VO {l_vo["ate"]}, LC {l_lc["ate"]}, path {path}')
+
+
+def dpv_slam_on_card(dev, smi):
+    """Phase 12 (see the module docstring)."""
+    import torch
+    from dpvo_torch import ba_global
+    from dpvo_torch.data_readers.synthetic import make_sequence
+    from dpvo_torch.loop_closure import proximity
+    from dpvo_torch.runtime import dpvo as hybrid
+    from dpvo_torch.scripts import _common as cm
+    t_phase = time.perf_counter()
+
+    seq = make_sequence(12, T=70, H=480, W=640, loop=True)
+    over = dict(LOOP_CLOSURE=True, KEYFRAME_THRESH=-1.0)
+    print(f'  make_sequence(12, T=70, 480x640, loop=True) in '
+          f'{time.perf_counter() - t_phase:.1f} s; overrides of '
+          f'default.yaml: {over} (MAX_EDGE_AGE, GLOBAL_OPT_FREQ and '
+          f'BACKEND_THRESH at their defaults)', flush=True)
+    calls = dict(proximity=[], tables=[], gba=[])
+    orig = (proximity.proximity_edges, ba_global.build_pair_tables,
+            hybrid.global_ba)
+
+    def timed_proximity(slam):
+        t0 = time.perf_counter()
+        kk, jj = orig[0](slam)
+        c = slam.cfg
+        jf = len(range(max(slam.n - c.GLOBAL_OPT_FREQ, 0),
+                       max(slam.n - c.KEYFRAME_INDEX, 0)))
+        l = slam.n - c.REMOVAL_WINDOW
+        kf = max(l, 0) - max(l - c.MAX_EDGE_AGE, 0)
+        calls['proximity'].append((1e3 * (time.perf_counter() - t0),
+                                   jf * kf * slam.M, len(kk)))
+        return kk, jj
+
+    def timed_tables(ii, *a, **k):
+        t0 = time.perf_counter()
+        out = orig[1](ii, *a, **k)
+        calls['tables'].append((1e3 * (time.perf_counter() - t0), len(ii)))
+        return out
+
+    def timed_gba(*a, **k):
+        args = [x.clone() if torch.is_tensor(x) else x for x in a]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig[2](*a, **k)
+        torch.cuda.synchronize()
+        calls['gba'].append((1e3 * (time.perf_counter() - t0), len(a[6]),
+                             a[10] - a[9], args, k))
+        return out
+
+    proximity.proximity_edges = timed_proximity
+    ba_global.build_pair_tables = timed_tables
+    hybrid.global_ba = timed_gba
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        launches, iters, st = main_path(dev, 'default.yaml + LOOP_CLOSURE',
+                                        'onepass', seq=seq, **over)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        proximity.proximity_edges, ba_global.build_pair_tables, \
+            hybrid.global_ba = orig
+    slam = st['slam']
+    check(slam._n_loop_edges > 0, 'no loop edges proposed at 640x480')
+    check(len(calls['gba']) > 0, 'global BA never ran at 640x480')
+    check(launches['corr_onepass'] >= iters, f'LC: K1 launched '
+          f'{launches["corr_onepass"]} times, expected >= {iters}')
+    print(f'  loop edges {slam._n_loop_edges}, global BA calls '
+          f'{len(calls["gba"])} (at n = '
+          f'{np.flatnonzero(slam.ran_global_ba).tolist()} and in '
+          f'terminate), inactive edges {len(slam.ii_inac)}, K1 launches '
+          f'{launches["corr_onepass"]} of {iters} update iterations',
+          flush=True)
+
+    # global BA's device time: the run's last call replayed, timed alone
+    # (host work included) and traced for the device's busy time
+    _, E, nwin, args, kw = calls['gba'][-1]
+    ms = cm.time_ms(lambda: ba_global.global_ba(*args, **kw), reps=5)
+    with tempfile.TemporaryDirectory() as tmp:
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ba_global.global_ba(*args, **kw)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(f'{tmp}/gba.json')
+        busy, _, n_ops = device_time(f'{tmp}/gba.json')
+    walls = [c[0] for c in calls['gba']]
+    print(f'  global BA in the run: {len(walls)} calls, wall per call '
+          f'(host clock, synchronized) median {float(np.median(walls))!r} '
+          f'ms, max {max(walls)!r}; edges per call '
+          f'{[c[1] for c in calls["gba"]]}, window frames '
+          f'{sorted(set(c[2] for c in calls["gba"]))}', flush=True)
+    print(f'  global BA, the last call replayed ({E} edges, {nwin} window '
+          f'frames): {ms!r} ms per call (CUDA events, median of 5, host '
+          f'work included), device busy {busy!r} ms in {n_ops} device ops '
+          f'(profiler)', flush=True)
+    for key, label in (('proximity', 'proximity_edges'),
+                       ('tables', 'build_pair_tables')):
+        t = [c[0] for c in calls[key]]
+        print(f'  host {label}: {len(t)} calls, median {float(np.median(t))!r}'
+              f' ms, max {max(t)!r} ms; per call ' +
+              (f'candidates {[c[1] for c in calls[key]]}, edges returned '
+               f'{[c[2] for c in calls[key]]}' if key == 'proximity' else
+               f'edges {[c[1] for c in calls[key]]}'), flush=True)
+    print(f'  {smi}: LC wall {st["wall"]!r} ms/frame, device busy '
+          f'{st["busy"]!r} ms/frame, idle share {st["idle"]!r}; peak device '
+          f'memory (max_memory_allocated) {peak / 2 ** 30!r} GiB; gmap '
+          f'{slam.st.gmap.numel() * slam.st.gmap.element_size() / 1e6!r} MB',
+          flush=True)
+
+    print('  K1 and K2 + K3 at the LC ring (Ng = 96,000 g rows, kk over the '
+          'whole ring):', flush=True)
+    kernel_vs_plain(dev, E=49152, F=36, H1=120, W1=160, Ng=96000, nv=40013,
+                    seed=12, timed=True)
+    fused_vs_plain(dev, E=49152, F=36, H1=120, W1=160, Ng=96000, seed=13)
+
+    print('  the LC runtime, CUDA vs CPU:', flush=True)
+    lc_cpu_vs_cuda(dev)
+    print('  the loop-closure ATE gates, f32:', flush=True)
+    lc_gates_on_card(dev)
+    print(f'  phase 12: {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
 def check_items(where, items, E, cap, max_pos):
     """A target-tile chain's work items as it made them (corr_probes.
     pair_work, slab_work): each of 1 .. cap edges, together every edge
@@ -797,14 +1028,14 @@ def main():
     dev = torch.device('cuda')
     name = torch.cuda.get_device_name(0)
 
-    print('[1/11] environment', flush=True)
+    print('[1/12] environment', flush=True)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f'  torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.device_count()} device(s): {name}')
 
-    print('[2/11] build', flush=True)
+    print('[2/12] build', flush=True)
     from concurrent.futures import ThreadPoolExecutor
     from dpvo_torch.ops import corr_fused, corr_onepass, corr_probes
     t0 = time.perf_counter()
@@ -878,7 +1109,7 @@ def main():
               f'SM; ring of {sh["stages"]} stages x {sh["rows"]} rows, '
               f'{sh["warps"]} consumer warps')
 
-    print('[3/11] kernels vs plain', flush=True)
+    print('[3/12] kernels vs plain', flush=True)
     err, k_ms, p_ms, b1, staged = kernel_vs_plain(
         dev, E=49152, F=36, H1=120, W1=160, Ng=36 * 96, nv=40013, seed=0,
         timed=True)
@@ -893,12 +1124,12 @@ def main():
           f'{streamed / 1e9!r} GB ({streamed / k2[1] / 1e9!r} TB/s)',
           flush=True)
 
-    print('[4/11] DeviceVO main path', flush=True)
+    print('[4/12] DeviceVO main path', flush=True)
     dv, dv_iters, dv_stats = main_path(dev, 'default.yaml', 'onepass')
     check(dv['corr_onepass'] >= dv_iters, f'K1 launched '
           f'{dv["corr_onepass"]} times, expected >= {dv_iters}')
 
-    print('[5/11] hybrid main path', flush=True)
+    print('[5/12] hybrid main path', flush=True)
     hy, hy_iters, hy_stats = main_path(dev, 'default.yaml + GRADIENT_BIAS',
                                        'fused_k',
                                        CENTROID_SEL_STRAT='GRADIENT_BIAS')
@@ -921,7 +1152,7 @@ def main():
               f'{st["busy"]!r}, idle {st["idle"]!r}; correlation ms/frame: '
               f'{corr}', flush=True)
 
-    print('[6/11] DeviceVO with fused_k', flush=True)
+    print('[6/12] DeviceVO with fused_k', flush=True)
     dk, dk_iters, _ = main_path(dev, 'default.yaml', 'fused_k', n_frames=12,
                                 measure=False)
     check(dk['corr_planes'] >= dk_iters and
@@ -929,22 +1160,25 @@ def main():
           f'K2 / K3 launched {dk}, expected >= {dk_iters} / '
           f'{2 * dk_iters}')
 
-    print('[7/11] CUDA vs CPU', flush=True)
+    print('[7/12] CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev)
 
-    print('[8/11] correlation probes', flush=True)
+    print('[8/12] correlation probes', flush=True)
     probe_entries = probes()
 
-    print('[9/11] DeviceVO on yuv420, per frame and chunked', flush=True)
+    print('[9/12] DeviceVO on yuv420, per frame and chunked', flush=True)
     ingest_and_chunks(dev, smi, dv_stats)
 
-    print('[10/11] HybridVO on yuv420, CUDA vs CPU', flush=True)
+    print('[10/12] HybridVO on yuv420, CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev, runs=(
         ('HybridVO', (256, 320), 'onepass', dict(GB, UPLOAD_FORMAT='yuv420'),
          ('corr_onepass',)),), precisions=(True,))
 
-    print('[11/11] accuracy on the card', flush=True)
+    print('[11/12] accuracy on the card', flush=True)
     accuracy_on_card(dev)
+
+    print('[12/12] DPV-SLAM (learned loop closure) on the card', flush=True)
+    dpv_slam_on_card(dev, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return dict(name=name, route='cuda', source=source,

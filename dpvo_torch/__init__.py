@@ -1,8 +1,9 @@
 """dpvo_torch — Deep Patch Visual Odometry on PyTorch and CUDA (Hopper).
 
 The port of dpvo_tpu's pure-VO runtime (DeviceVO) and of its hybrid runtime
-without loop closure (HybridVO). dpvo_tpu (JAX) stays the reference the
-tests hold this package against; this package imports torch and never jax.
+(HybridVO) with DPV-SLAM's learned loop closure. dpvo_tpu (JAX) stays the
+reference the tests hold this package against; this package imports torch
+and never jax.
 
 Layer map (module names mirror dpvo_tpu/):
   config.py             CfgNode + defaults
@@ -15,6 +16,9 @@ Layer map (module names mirror dpvo_tpu/):
   models/               encoders + VONet (nn.Modules), checkpoint loading
   ba_pairs.py, ba.py    Gauss-Newton bundle adjustment: pair-blocked
                         (DeviceVO) and edge-wise (HybridVO)
+  ba_global.py          global BA over every edge, pair-block-compressed E
+                        (loop closure)
+  loop_closure/         proximity loop-edge proposal (numpy)
   runtime/              DeviceVO, HybridVO and the DPVO constructor; I420
                         packing for the yuv420 upload (i420.py)
   accuracy.py           the accuracy gates' runs (learned and oracle ATE)

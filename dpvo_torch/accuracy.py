@@ -10,6 +10,11 @@
   and terminate() are held to ground truth without a trained network.
   oracle_hybrid runs HybridVO with no keyframe removal; oracle_removal runs
   DeviceVO through a dwell that makes keyframe removal fire.
+* the loop-closure gates (dpvo_tpu's tests/test_oracle_lc.py and
+  test_dpv_slam_learned.py) on an out-and-back sequence
+  (make_sequence(loop=True)): lc_run runs the runtime with or without
+  LOOP_CLOSURE, with a network or with gt_oracle, the ground-truth
+  reprojection targets from the sequence's poses and inverse depths.
 """
 from __future__ import annotations
 
@@ -187,3 +192,88 @@ def oracle_removal(device):
     slam._oracle = plane_oracle(gt)
     slam.force_accept = True
     return _oracle_run(slam, gt, reseed=True)
+
+
+# ---------------------------------------------------------------------------
+# the loop-closure gates
+# ---------------------------------------------------------------------------
+
+def lc_cfg(loop_closure):
+    """test_oracle_lc.py's and test_dpv_slam_learned.py's config: learned_cfg
+    with proximity every 8 frames and BACKEND_THRESH 64."""
+    cfg = learned_cfg()
+    cfg.LOOP_CLOSURE = bool(loop_closure)
+    cfg.GLOBAL_OPT_FREQ = 8           # the loop arc is ~T/2 frames
+    cfg.BACKEND_THRESH = 64.0
+    return cfg
+
+
+def gt_oracle(seq):
+    """Target oracle from make_sequence's ground truth (test_oracle_lc.py's
+    make_gt_oracle): the inverse depth at each edge's patch center in frame
+    ii (bilinear in disps4, at feature resolution), back-projected with the
+    pose of ii and projected into jj; unit weights. Ground-truth depth keeps
+    the targets consistent with the scene up to gauge, so normalize()'s
+    rescale does not invalidate them."""
+    gt_np = np.asarray(seq['poses_w2c'], np.float32)
+    disps_np = np.asarray(seq['disps4'], np.float32)
+
+    def oracle(poses, patch_xy, depth, intr, ii, jj, kk):
+        gt = torch.as_tensor(gt_np, device=poses.device)
+        disps = torch.as_tensor(disps_np, device=poses.device)
+        c = patch_xy[kk][:, :, P // 2, P // 2]          # (E, 2) 1/RES px
+        H4, W4 = disps.shape[1], disps.shape[2]
+        x = c[:, 0].clamp(0.0, W4 - 1.001)
+        y = c[:, 1].clamp(0.0, H4 - 1.001)
+        x0 = x.floor().long()
+        y0 = y.floor().long()
+        fx_ = x - x0
+        fy_ = y - y0
+        d = ((1 - fy_) * ((1 - fx_) * disps[ii, y0, x0]
+                          + fx_ * disps[ii, y0, x0 + 1])
+             + fy_ * ((1 - fx_) * disps[ii, y0 + 1, x0]
+                      + fx_ * disps[ii, y0 + 1, x0 + 1]))
+        d = d.clamp(min=1e-4)
+        fi, fj = intr[ii], intr[jj]
+        d_c = torch.stack([(c[:, 0] - fi[:, 2]) / fi[:, 0],
+                           (c[:, 1] - fi[:, 3]) / fi[:, 1],
+                           torch.ones_like(c[:, 0])], dim=-1)
+        wfc = lie.se3_inv(gt[ii])
+        X_w = lie.quat_rotate(wfc[:, 3:7], d_c / d[:, None]) + wfc[:, :3]
+        g = gt[jj]
+        X_j = lie.quat_rotate(g[:, 3:7], X_w) + g[:, :3]
+        z = X_j[:, 2].clamp(min=1e-3)
+        target = torch.stack([fj[:, 0] * X_j[:, 0] / z + fj[:, 2],
+                              fj[:, 1] * X_j[:, 1] / z + fj[:, 3]], dim=-1)
+        return target, torch.ones_like(target)
+
+    return oracle
+
+
+def lc_run(seq, loop_closure, *, device, network=None, oracle=False,
+           seed=7):
+    """One run of lc_cfg on `seq` (make_sequence's dict), the motion probe
+    forced: with oracle, HybridVO with gt_oracle's targets
+    (test_oracle_lc.py's _run); else DPVO with `network` (a weights path,
+    test_dpv_slam_learned.py's _run), which is DeviceVO without loop
+    closure. Returns dict(ate, path, n_loop (proximity edges proposed),
+    poses (T, 7) world-from-camera, slam)."""
+    images = seq['images']
+    T, H, W, _ = images.shape
+    cfg = lc_cfg(loop_closure)
+    if oracle:
+        slam = HybridVO(cfg, None, ht=H, wd=W, seed=seed, device=device)
+        slam._oracle = gt_oracle(seq)
+    else:
+        slam = DPVO(cfg, network, ht=H, wd=W, seed=seed, device=device)
+    if isinstance(slam, HybridVO):
+        slam.motion_probe = lambda: 100.0
+    else:
+        slam.force_accept = True
+    for t in range(T):
+        slam(t, images[t], seq['intrinsics'])
+    poses, tstamps = slam.terminate()
+    return dict(ate=trajectory_ate(poses, tstamps, seq['wfc']),
+                path=path_length(seq['wfc']),
+                n_loop=int(getattr(slam, '_n_loop_edges', 0)), poses=poses,
+                slam=slam)

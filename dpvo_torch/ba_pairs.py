@@ -75,11 +75,11 @@ def _linearize_pairs(poses, centers, depth, intr, target, weight,
     return r, w, Ji, Jj, Jz
 
 
-def _seg(vals, ids, valid, num):
-    """Segment sum of per-pair rows into `num` slots; rows with valid False
-    land in a spare slot that is dropped."""
-    flat = vals.reshape(ids.shape[0], -1).float()
-    out = torch.zeros((num + 1, flat.shape[1]), dtype=torch.float32,
+def _seg(vals, ids, valid, num, dtype=torch.float32):
+    """Segment sum of per-pair rows into `num` slots, in `dtype`; rows with
+    valid False land in a spare slot that is dropped."""
+    flat = vals.reshape(ids.shape[0], -1).to(dtype)
+    out = torch.zeros((num + 1, flat.shape[1]), dtype=dtype,
                       device=flat.device)
     out.index_add_(0, torch.where(valid, ids, num), flat)
     return out[:num].reshape((num,) + vals.shape[1:])

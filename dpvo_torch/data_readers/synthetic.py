@@ -4,8 +4,8 @@ Copy of the parts of dpvo_tpu/data_readers/synthetic.py that make_sequence
 needs (numpy only; copied so this package never imports the JAX package;
 the same seed gives the same arrays, bit for bit). Renders a textured
 slanted plane (closed-form ray intersection, so images, inverse depth and
-poses are mutually exact) under a smooth random camera trajectory: the
-learned accuracy gate's held-out sequence (dpvo_torch/accuracy.py).
+poses are mutually exact) under a smooth random camera trajectory, forward
+or out-and-back: the accuracy gates' sequences (dpvo_torch/accuracy.py).
 """
 from __future__ import annotations
 
@@ -69,6 +69,34 @@ def make_trajectory(rng, T, step=0.12, z0=3.5):
     return wfc
 
 
+def make_loop_trajectory(rng, T, step=0.12):
+    """Out-and-back trajectory: x advances for T/2 frames then returns
+    along (nearly) the same line, so late frames REVISIT early viewpoints —
+    the regime DPV-SLAM's proximity loop closure exists for (reference
+    patchgraph.py:56-82). Small lateral offset + wobble keep frames
+    distinct. Returns (T, 7) world-from-cam xyzquat."""
+    t = np.arange(T, dtype=np.float32)
+    half = T / 2.0
+    x = step * np.where(t <= half, t, T - t).astype(np.float32)
+    pos = np.stack([
+        x + 0.02 * np.sin(0.9 * t + rng.rand() * 6),
+        0.05 * np.sin(0.5 * t + rng.rand() * 6) + 0.04 * (t > half),
+        0.04 * np.sin(0.33 * t + rng.rand() * 6),
+    ], -1).astype(np.float32)
+    yaw = 0.03 * np.sin(0.4 * t + rng.rand() * 6)
+    pit = 0.02 * np.sin(0.27 * t + rng.rand() * 6)
+    wfc = np.zeros((T, 7), np.float32)
+    wfc[:, :3] = pos
+    cy, sy = np.cos(yaw / 2), np.sin(yaw / 2)
+    cp, sp = np.cos(pit / 2), np.sin(pit / 2)
+    wfc[:, 3] = cy * sp
+    wfc[:, 4] = sy * cp
+    wfc[:, 5] = -sy * sp
+    wfc[:, 6] = cy * cp
+    wfc[:, 3:7] /= np.linalg.norm(wfc[:, 3:7], axis=-1, keepdims=True)
+    return wfc
+
+
 def _quat_mat(q):
     """(…,4) xyzw -> (…,3,3) rotation matrices."""
     x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
@@ -112,9 +140,10 @@ def render_plane_view(tex, wfc, intr, H, W, plane_n, plane_c,
     return img.astype(np.uint8), lam  # z-depth == lam (d_c.z == 1)
 
 
-def make_sequence(seed, T=15, H=64, W=96, step=0.12):
-    """One evaluation sequence with exact GT (dpvo_tpu's make_sequence with
-    loop=False, the forward trajectory).
+def make_sequence(seed, T=15, H=64, W=96, step=0.12, loop=False):
+    """One evaluation sequence with exact GT (dpvo_tpu's make_sequence):
+    the forward trajectory, or with loop=True the out-and-back revisit
+    trajectory (make_loop_trajectory) for loop-closure certification.
     Returns dict: images (T,H,W,3) u8, poses_w2c (T,7), disps4
     (T,H//4,W//4) inverse z-depth at feature res, intrinsics (4,) full-res.
     """
@@ -125,7 +154,10 @@ def make_sequence(seed, T=15, H=64, W=96, step=0.12):
     z0 = rng.uniform(3.0, 4.0)
     n = np.array([-a, -b, 1.0], np.float32)
     intr = np.array([0.9 * W, 0.9 * W, W / 2, H / 2], np.float32)
-    wfc = make_trajectory(rng, T, step=step, z0=z0)
+    if loop:
+        wfc = make_loop_trajectory(rng, T, step=step)
+    else:
+        wfc = make_trajectory(rng, T, step=step, z0=z0)
 
     H4, W4 = H // 4, W // 4
     intr4 = intr / 4.0

@@ -6,8 +6,9 @@ Phases (any failure raises, so the exit code is non-zero):
   1. environment: a CUDA device must exist; prints the card's name and
      power limit as nvidia-smi reports them;
   2. build: compiles dpvo_torch/csrc/corr_onepass.cu (K1),
-     dpvo_torch/csrc/corr_fused.cu (K2 planes, K3 tap select) and
-     dpvo_torch/csrc/corr_probes.cu (the probes K4-K8) with nvcc, one
+     dpvo_torch/csrc/corr_fused.cu (K2 planes, K3 tap select),
+     dpvo_torch/csrc/corr_probes.cu (the probes K4-K8) and
+     dpvo_torch/csrc/corr_backward.cu (K1's gradient) with nvcc, one
      process per source, started together; prints ptxas's register and
      spill lines of each kernel, K1's threads, shared memory and blocks
      per SM for bf16 and f32 maps, and the persistent launch shapes (grid,
@@ -97,6 +98,21 @@ Phases (any failure raises, so the exit code is non-zero):
      ATE gates of
      dpvo_torch/accuracy.py in f32 (oracle and learned, as
      tests/test_torch_lc_ate.py holds them).
+ 13. training on the card (dpvo_torch/train/): the correlation backward
+     kernel (csrc/corr_backward.cu) against corr_backward_plain on
+     edge_schedule(15, 80, 18)'s final 18,000 edges, 15 frames of 120x160
+     and 30x40 maps, Ng = 1,200, for f32 and bf16 maps, with its time
+     alone and back to back, the plain version's and its bound; K1 against
+     its plain version at the same training shapes (every edge live), bf16
+     and f32 maps; one train step's loss and gradients on CUDA against the
+     CPU (full-width VONet, f32, T = 8, M = 4, 64x96), with two CUDA runs'
+     spread and two planted faults in the backward's output read against
+     the same limits, then make_train_step's whole step; the
+     reference training size (edge_schedule(15, 80, 18), batch 1, 480x640
+     make_sequence frames, bf16 mixed precision): one structure-only step
+     and 3 full steps, finite, K1 and the backward kernel 18 times per
+     step; wall ms per step, device busy and idle share from a profiler
+     trace of the last step, its top kernels, peak device memory.
 The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
@@ -169,8 +185,10 @@ def corr_case(E, F, H1, W1, Ng, seed, kk=None):
     return gmap, f1, f2, coords, kk.astype(np.int32), jj.astype(np.int32)
 
 
-def kernel_vs_plain(dev, E, F, H1, W1, Ng, nv, seed, kk=None, timed=False):
-    """Kernel (bf16 maps) vs the plain version on the same inputs, both with
+def kernel_vs_plain(dev, E, F, H1, W1, Ng, nv, seed, kk=None, timed=False,
+                    dtype=None):
+    """Kernel (bf16 maps unless dtype says otherwise: f32 maps take
+    corr_onepass_kernel) vs the plain version on the same inputs, both with
     f32 output. Tolerance: |kernel - plain| <= 1e-4 * max|plain| -- both sum
     the same 128 f32 products per tap, in another order. Edges >= nv must be
     exact zeros. The bf16 output (the main path's) must be within one bf16
@@ -183,7 +201,7 @@ def kernel_vs_plain(dev, E, F, H1, W1, Ng, nv, seed, kk=None, timed=False):
     from dpvo_torch.ops import corr_onepass
     from dpvo_torch.ops.corr import corr_two_level as corr_plain
     gmap, f1, f2, coords, kk, jj = corr_case(E, F, H1, W1, Ng, seed, kk)
-    maps = [torch.from_numpy(a).to(dev).to(torch.bfloat16)
+    maps = [torch.from_numpy(a).to(dev).to(dtype or torch.bfloat16)
             for a in (gmap, f1, f2)]
     co, kk_t, jj_t = (torch.from_numpy(a).to(dev) for a in (coords, kk, jj))
 
@@ -220,7 +238,8 @@ def kernel_vs_plain(dev, E, F, H1, W1, Ng, nv, seed, kk=None, timed=False):
     err16 = (out16.float() - ref).abs() - 2 ** -8 * ref.abs()
     check(err16.max().item() <= 1e-4 * scale, 'bf16 output off by more '
           'than one rounding')
-    print(f'  E={E} F={F} L1={H1}x{W1} nv={nv}: max|kernel-plain| = {err!r} '
+    print(f'  {maps[0].dtype} maps, E={E} F={F} L1={H1}x{W1} Ng={Ng} nv={nv}: '
+          f'max|kernel-plain| = {err!r} '
           f'(max|plain| = {scale!r}, bound 1e-4 * max|plain|)', flush=True)
     if not timed:
         return err, None, None, None, staged
@@ -925,6 +944,279 @@ def dpv_slam_on_card(dev, smi):
     print(f'  phase 12: {time.perf_counter() - t_phase:.1f} s', flush=True)
 
 
+def backward_vs_plain(dev, dtype, seed):
+    """Phase 13: the correlation backward kernel against corr_backward_plain
+    at the reference training size: edge_schedule(15, 80, 18)'s final
+    18,000 edges (its kk and jj), 15 frames of 120x160 and 30x40 maps, Ng =
+    1,200, coords spread as corr_case spreads them, a N(0, 1) output
+    gradient. Tolerance: f32 maps 1e-5 * max|plain| (the kernel sums with
+    atomics, in an order that changes from run to run); bf16 maps, whose
+    gradients are rounded once to bf16, one bf16 rounding more (2^-8 *
+    |plain|). Returns (max_abs_err, kernel ms, plain ms, (bound ms, side),
+    device ms)."""
+    import torch
+    from dpvo_torch.ops.corr_grad import corr_backward, corr_backward_plain
+    from dpvo_torch.scripts import _common as cm
+    from dpvo_torch.train.trainer import edge_schedule
+    _, jj, kk, *_ = edge_schedule(15, 80, 18)[-1]
+    E, F, H1, W1, Ng = len(kk), 15, 120, 160, 1200
+    gmap, f1, f2, coords, _, _ = corr_case(E, F, H1, W1, Ng, seed, kk=kk)
+    maps = [torch.from_numpy(a).to(dev).to(dtype) for a in (gmap, f1, f2)]
+    co = torch.from_numpy(coords).to(dev)
+    kk_t, jj_t = cm.ints(kk, dev), cm.ints(jj, dev)
+    go = cm.normal(np.random.default_rng(seed), (E, 7, 7, 3, 3, 2), dev,
+                   torch.float32)
+    args = (*maps, co, kk_t, jj_t, go)
+    got = corr_backward(*args)
+    ref = corr_backward_plain(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(('dgmap', 'dfmap1', 'dfmap2'), got, ref):
+        check(a.shape == b.shape and a.dtype == dtype, f'{name} '
+              f'{tuple(a.shape)} {a.dtype}')
+        check(bool(torch.isfinite(a).all()), f'{name} not finite')
+        m = b.abs().max().item()
+        d = (a.float() - b).abs()
+        bound = 1e-5 * m + (2 ** -8 * b.abs() if dtype == torch.bfloat16
+                            else 0.0)
+        check(bool((d <= bound).all()), f'corr_backward {name} ({dtype}) vs '
+              f'plain: max |err| {d.max().item()} at max|plain| {m}')
+        err = max(err, d.max().item())
+        print(f'  {name}: max|kernel - plain| {d.max().item()!r} at '
+              f'max|plain| {m!r}', flush=True)
+    k_ms = cm.time_ms(lambda: corr_backward(*args))
+    p_ms = cm.time_ms(lambda: corr_backward_plain(*args))
+    dev_ms, _ = cm.device_ms(lambda: corr_backward(*args), rounds=3, reps=5)
+    # bound: the g rows of the distinct kk, the map pixels the windows
+    # touch, coords, kk, jj and the output gradient read once; the three
+    # gradients written once, whole maps at the maps' element size (what
+    # the wrapper returns; its f32 accumulation buffers are the design's
+    # cost, not the function's); per in-map tap and channel dg += d * f and
+    # df += d * g: 4 f32 operations on the CUDA cores (67 TFLOP/s; no
+    # tensor-core work)
+    r = torch.arange(8, device=dev) - 3
+    el = maps[0].element_size()
+    nb = cm.nbytes(co, kk_t, jj_t, go) + sum(g.numel() for g in ref) * el
+    nb += len(set(kk.tolist())) * 9 * 128 * el
+    taps = 0
+    for fm, c in ((maps[1], co), (maps[2], co / 4.0)):
+        xi = c[..., 0].floor().reshape(E, 9, 1, 1)
+        yi = c[..., 1].floor().reshape(E, 9, 1, 1)
+        xi, yi = (torch.nan_to_num(v, nan=-1e4).clamp(-1e4, 1e4).long()
+                  for v in (xi, yi))
+        y, x = yi + r[:, None], xi + r
+        nb += cm.map_bytes(jj_t, y, x, *fm.shape[:3]) // 2 * el
+        taps += int(((y >= 0) & (y < fm.shape[1]) & (x >= 0) &
+                     (x < fm.shape[2])).sum())
+    bound = cm.bound_ms(nb, 4 * 128 * taps, cm.F32_FLOP_PER_S)
+    print(f'  corr_backward ({dtype} maps, E = {E}, 15 frames of '
+          f'{H1}x{W1} / {H1 // 4}x{W1 // 4}, Ng = {Ng}): kernel '
+          f'{k_ms!r} ms alone (median of 20), device {dev_ms!r} ms '
+          f'(back-to-back), plain {p_ms!r} ms; bound {bound[0]!r} ms '
+          f'({bound[1]}: {nb / 1e6:.1f} MB, {taps} in-map taps, '
+          f'{4 * 128 * taps / 1e9:.2f} GFLOP f32); map atomics '
+          f'{128 * taps}', flush=True)
+    return err, k_ms, p_ms, bound, dev_ms
+
+
+def train_cpu_vs_cuda(dev):
+    """Phase 13: one train step's loss and parameter gradients, full-width
+    VONet, f32, on CUDA (K1, the backward kernel) and on the CPU (plain
+    versions): make_batch([11], T=8, M=4, 64x96), edge_schedule(8, 4, 2),
+    the unroll tests/test_torch_trainer.py holds against dpvo_tpu. The loss
+    within 1e-5 relative and the whole gradient within 1e-3 relative L2,
+    its bounds; each parameter's gradient (above 1e-6 of the global norm)
+    within 3e-3 relative L2, wider than the CPU test's 1e-3 because the
+    backward's atomics change the sum order from run to run and the
+    unrolled BA amplifies it: the step runs twice on the card and the two
+    runs' spread is printed beside the limit. Each further unroll step
+    amplifies f32 rounding more. The limit's other side: the step again
+    with two planted faults in the backward kernel's output, dfmap2 zeroed
+    (the gate must fail it) and dfmap1 scaled by 1.01 (printed). Then
+    make_train_step's whole step on the card: finite, parameters moved."""
+    import torch
+    from dpvo_torch.data_readers.synthetic import make_batch
+    from dpvo_torch.models.vonet import init_vonet
+    from dpvo_torch.ops import corr_grad, corr_onepass
+    from dpvo_torch.train import trainer as tt
+    batch = make_batch([11], T=8, M=4, H=64, W=96)
+    sched = tt.edge_schedule(8, 4, 2)
+
+    def grads(d):
+        net = init_vonet(None, d)
+        args = [torch.from_numpy(batch[k][0]).to(d) for k in tt.SEQ_KEYS]
+        k1, bw = corr_onepass.launches, corr_grad.backward_launches
+        traj = tt.vonet_forward(net, *args, sched)
+        loss, _ = tt.trajectory_loss(traj, args[1])
+        loss.backward()
+        n = (corr_onepass.launches - k1, corr_grad.backward_launches - bw)
+        if d.type == 'cuda':
+            check(n == (len(sched), len(sched)), f'K1 / corr_backward '
+                  f'launched {n} times, expected {len(sched)} each')
+        return loss.item(), {k: p.grad.detach().cpu()
+                             for k, p in net.named_parameters()}
+
+    def against(ref, got):
+        """(loss rel, whole gradient rel L2, (worst per-parameter rel L2,
+        its name), parameters held, parameters over 3e-3)."""
+        (l_ref, g_ref), (l_got, g_got) = ref, got
+        gnorm = float(torch.sqrt(sum((g ** 2).sum() for g in g_ref.values())))
+        worst, held, over, d2 = (0.0, ''), 0, 0, 0.0
+        for k, r in g_ref.items():
+            check(bool(torch.isfinite(g_got[k]).all()), f'{k}: CUDA gradient '
+                  f'not finite')
+            d2 += float(((g_got[k] - r) ** 2).sum())
+            n = float(r.norm())
+            if n > 1e-6 * gnorm:
+                e = float((g_got[k] - r).norm()) / n
+                held, over = held + 1, over + (e > 3e-3)
+                worst = max(worst, (e, k))
+        return (abs(l_got - l_ref) / abs(l_ref), d2 ** 0.5 / gnorm, worst,
+                held, over)
+
+    def faulty(edit):
+        orig = corr_grad.corr_backward
+        corr_grad.corr_backward = lambda *a: edit(orig(*a))
+        try:
+            return grads(dev)
+        finally:
+            corr_grad.corr_backward = orig
+
+    cpu, cuda = grads(torch.device('cpu')), grads(dev)
+    rel, whole, worst, held, _ = against(cpu, cuda)
+    spread = against(cuda, grads(dev))
+    print(f'  train step CUDA vs CPU (f32, T=8, M=4, 64x96, 2 unroll '
+          f'steps): loss {cuda[0]!r} vs {cpu[0]!r} (rel {rel!r}); the whole '
+          f'gradient relative L2 {whole!r}; {held} parameters, worst '
+          f'relative L2 {worst[0]!r} ({worst[1]}); two CUDA runs: loss rel '
+          f'{spread[0]!r}, whole {spread[1]!r}, worst {spread[2][0]!r} '
+          f'({spread[2][1]})', flush=True)
+    check(rel <= 1e-5, f'loss CUDA vs CPU rel {rel}')
+    check(whole <= 1e-3, f'gradient CUDA vs CPU: relative L2 {whole}')
+    check(worst[0] <= 3e-3, f'gradients CUDA vs CPU: worst relative L2 '
+          f'{worst}')
+    for label, edit in (
+            ('dfmap2 zeroed', lambda g: (g[0], g[1], torch.zeros_like(g[2]))),
+            ('dfmap1 x 1.01', lambda g: (g[0], g[1] * 1.01, g[2]))):
+        _, f_whole, f_worst, _, f_over = against(cpu, faulty(edit))
+        print(f'  planted fault, {label}: the whole gradient relative L2 '
+              f'{f_whole!r}, worst {f_worst[0]!r} ({f_worst[1]}), '
+              f'{f_over} of {held} parameters over 3e-3', flush=True)
+        if label == 'dfmap2 zeroed':
+            check(f_whole > 1e-3 or f_worst[0] > 3e-3, 'the gradient gate '
+                  'passes a backward that drops dfmap2')
+    net = init_vonet(None, dev)
+    before = [p.detach().clone() for p in net.parameters()]
+    opt = tt.make_optimizer(net.parameters(), lr=1e-3, total_steps=100)
+    step = tt.make_train_step(net, opt, sched, mixed_precision=False)
+    loss, _ = step(batch)
+    check(bool(torch.isfinite(loss)), 'make_train_step loss not finite')
+    check(all(bool(torch.isfinite(p).all()) for p in net.parameters()) and
+          any(not torch.equal(p, q) for p, q in zip(net.parameters(),
+                                                   before)),
+          'make_train_step left the parameters unmoved or not finite')
+
+
+def train_reference_size(dev, smi, n_full=3):
+    """Phase 13: the reference training size, as train.py runs it:
+    edge_schedule(15, 80, 18), batch 1, 15 frames of make_sequence at
+    480x640, bf16 mixed precision, the full-width VONet from seeded weights;
+    one structure-only step, then n_full full steps, counts set to 0 just
+    before and read just after: K1 and corr_backward 18 times per step.
+    The last step runs under the profiler (device busy, idle share against
+    the untraced steps' median wall, top kernels). Returns the launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dpvo_torch.data_readers.synthetic import make_batch_from, \
+        make_sequence
+    from dpvo_torch.models.vonet import init_vonet
+    from dpvo_torch.ops import corr_grad, corr_onepass
+    from dpvo_torch.train import trainer as tt
+    t0 = time.perf_counter()
+    seq = make_sequence(21, T=15, H=480, W=640)
+    batch = make_batch_from([seq], np.random.RandomState(0), 80)
+    sched = tt.edge_schedule(15, 80, 18)
+    print(f'  make_sequence(21, T=15, 480x640) in '
+          f'{time.perf_counter() - t0:.1f} s; edges per unroll step '
+          f'{len(sched[0][0])} .. {len(sched[-1][0])}, '
+          f'{sum(len(s[0]) for s in sched)} edge-steps', flush=True)
+    net = init_vonet(None, dev)
+    opt = tt.make_optimizer(net.parameters(), lr=8e-5, total_steps=240000)
+    steps = [tt.make_train_step(net, opt, sched, structure_only=so,
+                                mixed_precision=True)
+             for so in (True, False)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    corr_onepass.launches = corr_grad.backward_launches = 0
+    walls, losses = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(1 + n_full):
+            traced = i == n_full
+            if traced:
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+            ts = time.perf_counter()
+            loss, aux = steps[min(i, 1)](batch)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - ts))
+            losses.append(loss.item())
+            grads_ok = all(bool(torch.isfinite(p).all())
+                           for p in net.parameters())
+            check(np.isfinite(losses[-1]) and grads_ok, f'step {i}: loss '
+                  f'{losses[-1]}, parameters finite {grads_ok}')
+            if traced:
+                prof.__exit__(None, None, None)
+                prof.export_chrome_trace(f'{tmp}/train.json')
+                busy, by_name, n_ops = device_time(f'{tmp}/train.json')
+    launches = dict(corr_onepass=corr_onepass.launches,
+                    corr_backward=corr_grad.backward_launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = 1 + n_full
+    check(launches == dict(corr_onepass=18 * n_steps,
+                           corr_backward=18 * n_steps),
+          f'launches {launches}, expected 18 per step of {n_steps}')
+    wall = float(np.median(walls[1:-1])) if n_full > 1 else walls[-1]
+    print(f'  {n_steps} steps (1 structure-only, {n_full} full): losses '
+          f'{losses}; wall ms per step {walls} (the last traced); launches '
+          f'{launches}', flush=True)
+    print(f'  {smi}: full step wall {wall!r} ms (median of the untraced '
+          f'full steps), device busy {busy!r} ms in {n_ops} device ops '
+          f'(profiler, the last step), idle share {1.0 - busy / wall!r}; '
+          f'traced step {walls[-1]!r} ms; peak device memory '
+          f'(max_memory_allocated) {peak / 2 ** 30!r} GiB', flush=True)
+    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f'    {v:9.3f} ms/step  {k[:100]}')
+    sys.stdout.flush()
+    return launches
+
+
+def train_on_card(dev, smi):
+    """Phase 13 (see the module docstring). Returns the corr_backward
+    entry of the kernels line."""
+    import torch
+    t_phase = time.perf_counter()
+    from dpvo_torch.train.trainer import edge_schedule
+    errs = {dtype: backward_vs_plain(dev, dtype, seed)
+            for dtype, seed in ((torch.float32, 30), (torch.bfloat16, 31))}
+    print('  K1 at the training shapes (edge_schedule(15, 80, 18)\'s final kk, '
+          'every edge live, 15 frames, Ng = 1,200):', flush=True)
+    kk = edge_schedule(15, 80, 18)[-1][2]
+    for dtype, seed in ((torch.bfloat16, 32), (torch.float32, 33)):
+        kernel_vs_plain(dev, E=len(kk), F=15, H1=120, W1=160, Ng=1200,
+                        nv=len(kk), seed=seed, kk=kk, dtype=dtype)
+    train_cpu_vs_cuda(dev)
+    launches = train_reference_size(dev, smi)
+    err, k_ms, p_ms, bound, _ = errs[torch.bfloat16]
+    print(f'  phase 13: {time.perf_counter() - t_phase:.1f} s', flush=True)
+    return dict(name='corr_backward', route='cuda',
+                source='dpvo_torch/csrc/corr_backward.cu',
+                replaces='dpvo_tpu/train/trainer.py:220',
+                launches=launches['corr_backward'], max_abs_err=err,
+                ms=k_ms, plain_ms=p_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=None)
+
+
 def check_items(where, items, E, cap, max_pos):
     """A target-tile chain's work items as it made them (corr_probes.
     pair_work, slab_work): each of 1 .. cap edges, together every edge
@@ -1028,18 +1320,20 @@ def main():
     dev = torch.device('cuda')
     name = torch.cuda.get_device_name(0)
 
-    print('[1/12] environment', flush=True)
+    print('[1/13] environment', flush=True)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f'  torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.device_count()} device(s): {name}')
 
-    print('[2/12] build', flush=True)
+    print('[2/13] build', flush=True)
     from concurrent.futures import ThreadPoolExecutor
-    from dpvo_torch.ops import corr_fused, corr_onepass, corr_probes
+    from dpvo_torch.ops import corr_fused, corr_grad, corr_onepass, \
+        corr_probes
     t0 = time.perf_counter()
-    builds = (corr_onepass.build, corr_fused.build, corr_probes.build)
+    builds = (corr_onepass.build, corr_fused.build, corr_probes.build,
+              corr_grad.build)
     with ThreadPoolExecutor(len(builds)) as ex:  # one nvcc per source
         sos = [f.result() for f in [ex.submit(b) for b in builds]]
     print(f'  {", ".join(so.name for so in sos)} in '
@@ -1109,7 +1403,7 @@ def main():
               f'SM; ring of {sh["stages"]} stages x {sh["rows"]} rows, '
               f'{sh["warps"]} consumer warps')
 
-    print('[3/12] kernels vs plain', flush=True)
+    print('[3/13] kernels vs plain', flush=True)
     err, k_ms, p_ms, b1, staged = kernel_vs_plain(
         dev, E=49152, F=36, H1=120, W1=160, Ng=36 * 96, nv=40013, seed=0,
         timed=True)
@@ -1124,12 +1418,12 @@ def main():
           f'{streamed / 1e9!r} GB ({streamed / k2[1] / 1e9!r} TB/s)',
           flush=True)
 
-    print('[4/12] DeviceVO main path', flush=True)
+    print('[4/13] DeviceVO main path', flush=True)
     dv, dv_iters, dv_stats = main_path(dev, 'default.yaml', 'onepass')
     check(dv['corr_onepass'] >= dv_iters, f'K1 launched '
           f'{dv["corr_onepass"]} times, expected >= {dv_iters}')
 
-    print('[5/12] hybrid main path', flush=True)
+    print('[5/13] hybrid main path', flush=True)
     hy, hy_iters, hy_stats = main_path(dev, 'default.yaml + GRADIENT_BIAS',
                                        'fused_k',
                                        CENTROID_SEL_STRAT='GRADIENT_BIAS')
@@ -1152,7 +1446,7 @@ def main():
               f'{st["busy"]!r}, idle {st["idle"]!r}; correlation ms/frame: '
               f'{corr}', flush=True)
 
-    print('[6/12] DeviceVO with fused_k', flush=True)
+    print('[6/13] DeviceVO with fused_k', flush=True)
     dk, dk_iters, _ = main_path(dev, 'default.yaml', 'fused_k', n_frames=12,
                                 measure=False)
     check(dk['corr_planes'] >= dk_iters and
@@ -1160,25 +1454,28 @@ def main():
           f'K2 / K3 launched {dk}, expected >= {dk_iters} / '
           f'{2 * dk_iters}')
 
-    print('[7/12] CUDA vs CPU', flush=True)
+    print('[7/13] CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev)
 
-    print('[8/12] correlation probes', flush=True)
+    print('[8/13] correlation probes', flush=True)
     probe_entries = probes()
 
-    print('[9/12] DeviceVO on yuv420, per frame and chunked', flush=True)
+    print('[9/13] DeviceVO on yuv420, per frame and chunked', flush=True)
     ingest_and_chunks(dev, smi, dv_stats)
 
-    print('[10/12] HybridVO on yuv420, CUDA vs CPU', flush=True)
+    print('[10/13] HybridVO on yuv420, CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev, runs=(
         ('HybridVO', (256, 320), 'onepass', dict(GB, UPLOAD_FORMAT='yuv420'),
          ('corr_onepass',)),), precisions=(True,))
 
-    print('[11/12] accuracy on the card', flush=True)
+    print('[11/13] accuracy on the card', flush=True)
     accuracy_on_card(dev)
 
-    print('[12/12] DPV-SLAM (learned loop closure) on the card', flush=True)
+    print('[12/13] DPV-SLAM (learned loop closure) on the card', flush=True)
     dpv_slam_on_card(dev, smi)
+
+    print('[13/13] training on the card', flush=True)
+    backward_entry = train_on_card(dev, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return dict(name=name, route='cuda', source=source,
@@ -1195,7 +1492,7 @@ def main():
               'dpvo_tpu/ops/corr_fused.py:94', hy['corr_planes'], *k2),
         entry('corr_select', 'dpvo_torch/csrc/corr_fused.cu',
               'dpvo_tpu/ops/corr_select.py:63', hy['corr_select'], *k3),
-        *probe_entries]}))
+        *probe_entries, backward_entry]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}))

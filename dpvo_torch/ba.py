@@ -73,7 +73,10 @@ def _gather_blocks(r, w, Ji, Jj, Jz, ii, jj, kk, t0, patch_base, W, PC):
     [0, W), patch slots kk - patch_base in [0, PC); out-of-window terms are
     dropped. An edge whose patch slot is outside the depth window is
     dropped everywhere (its depth would be held fixed while it pulls on the
-    poses)."""
+    poses). The sums are taken in r's dtype."""
+    def seg(vals, ids, valid, num):
+        return _seg(vals, ids, valid, num, dtype=r.dtype)
+
     wi = ii - t0
     wj = jj - t0
     pk = kk - patch_base
@@ -88,21 +91,21 @@ def _gather_blocks(r, w, Ji, Jj, Jz, ii, jj, kk, t0, patch_base, W, PC):
     Bii = JtWJ(Ji, Ji)
     Bij = JtWJ(Ji, Jj)
     Bjj = JtWJ(Jj, Jj)
-    B = _seg(Bii, wi * W + wi, vi, W * W)
-    B = B + _seg(Bij, wi * W + wj, vi & vj, W * W)
-    B = B + _seg(Bij.transpose(-1, -2), wj * W + wi, vi & vj, W * W)
-    B = B + _seg(Bjj, wj * W + wj, vj, W * W)
+    B = seg(Bii, wi * W + wi, vi, W * W)
+    B = B + seg(Bij, wi * W + wj, vi & vj, W * W)
+    B = B + seg(Bij.transpose(-1, -2), wj * W + wi, vi & vj, W * W)
+    B = B + seg(Bjj, wj * W + wj, vj, W * W)
 
     wJz = w * Jz
-    Em = _seg((Ji * wJz[..., None]).sum(1), wi * PC + pk, vi & vk, W * PC)
-    Em = Em + _seg((Jj * wJz[..., None]).sum(1), wj * PC + pk, vj & vk,
-                   W * PC)
-    C = _seg((Jz * wJz).sum(-1), pk, vk, PC)
-    u = _seg((Jz * w * r).sum(-1), pk, vk, PC)
+    Em = seg((Ji * wJz[..., None]).sum(1), wi * PC + pk, vi & vk, W * PC)
+    Em = Em + seg((Jj * wJz[..., None]).sum(1), wj * PC + pk, vj & vk,
+                  W * PC)
+    C = seg((Jz * wJz).sum(-1), pk, vk, PC)
+    u = seg((Jz * w * r).sum(-1), pk, vk, PC)
     wr = (w * r)[..., None]
-    v = _seg((Ji * wr).sum(1), wi, vi, W)
-    v = v + _seg((Jj * wr).sum(1), wj, vj, W)
-    touched = _seg((w.sum(-1) > 0).float(), pk, vk, PC)
+    v = seg((Ji * wr).sum(1), wi, vi, W)
+    v = v + seg((Jj * wr).sum(1), wj, vj, W)
+    touched = seg((w.sum(-1) > 0).float(), pk, vk, PC)
     return B.reshape(W, W, 6, 6), Em.reshape(W, PC, 6), C, v, u, touched
 
 

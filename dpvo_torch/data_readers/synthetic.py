@@ -1,11 +1,13 @@
 """Synthetic photometric scenes with exact ground truth.
 
 Copy of the parts of dpvo_tpu/data_readers/synthetic.py that make_sequence
-needs (numpy only; copied so this package never imports the JAX package;
-the same seed gives the same arrays, bit for bit). Renders a textured
-slanted plane (closed-form ray intersection, so images, inverse depth and
-poses are mutually exact) under a smooth random camera trajectory, forward
-or out-and-back: the accuracy gates' sequences (dpvo_torch/accuracy.py).
+and make_batch need (numpy only; copied so this package never imports the
+JAX package; the same seed gives the same arrays, bit for bit). Renders a
+textured slanted plane (closed-form ray intersection, so images, inverse
+depth and poses are mutually exact) under a smooth random camera
+trajectory, forward or out-and-back: the accuracy gates' sequences
+(dpvo_torch/accuracy.py) and, stacked by make_batch_from / make_batch, the
+trainer's batches.
 """
 from __future__ import annotations
 
@@ -171,3 +173,31 @@ def make_sequence(seed, T=15, H=64, W=96, step=0.12, loop=False):
     poses_w2c = nse3.inv(wfc)
     return dict(images=images, poses_w2c=poses_w2c.astype(np.float32),
                 disps4=disps4, intrinsics=intr, wfc=wfc)
+
+
+def make_batch_from(seqs, rng, M):
+    """Stack pre-rendered sequences into the trainer's batch dict
+    (train/trainer.py:make_train_step) with fresh patch coords and depth
+    seeds from the numpy RandomState rng."""
+    B = len(seqs)
+    T = seqs[0]['images'].shape[0]
+    H4 = seqs[0]['images'].shape[1] // 4
+    W4 = seqs[0]['images'].shape[2] // 4
+    coords = np.stack([rng.randint(1, W4 - 1, (B, T, M)),
+                       rng.randint(1, H4 - 1, (B, T, M))],
+                      -1).astype(np.float32)
+    return dict(
+        images=np.stack([s['images'] for s in seqs]).astype(np.float32),
+        poses_gt=np.stack([s['poses_w2c'] for s in seqs]),
+        disps=np.stack([s['disps4'] for s in seqs]),
+        intrinsics=np.stack([s['intrinsics'] for s in seqs]),
+        coords=coords,
+        depth_init=rng.uniform(0.2, 0.6, (B, T, M)).astype(np.float32),
+    )
+
+
+def make_batch(seeds, T=15, M=8, H=64, W=96, step=0.12):
+    """Render + stack (convenience wrapper over make_batch_from)."""
+    seqs = [make_sequence(s, T=T, H=H, W=W, step=step) for s in seeds]
+    rng = np.random.RandomState(seeds[0] * 7919 + 13)
+    return make_batch_from(seqs, rng, M)

@@ -1,6 +1,6 @@
 """SE3 and quaternion operations on tensors (the subset the VO path uses).
 
-Port of dpvo_tpu/lie.py:31-289. Layouts match it and the reference
+Port of dpvo_tpu/lie.py:31-293. Layouts match it and the reference
 lietorch: SO3 (..., 4) = [qx, qy, qz, qw]; SE3 (..., 7) = [tx, ty, tz, q];
 se3 tangent (..., 6) = [tau, phi]. Small-angle regimes keep the same Taylor
 branches, selected with torch.where over safe denominators.
@@ -170,3 +170,8 @@ def se3_adjT(data, X):
 def se3_retr(data, xi):
     """Left-multiplicative retraction: exp(xi) * data."""
     return se3_mul(se3_exp(xi), data)
+
+
+def se3_scale(data, s):
+    """Scale the translation (lietorch SE3.scale, groups.py:282)."""
+    return torch.cat([data[..., :3] * s, data[..., 3:7]], dim=-1)

@@ -99,3 +99,44 @@ class SoftAgg(nn.Module):
                                                      (fx * w).float())
         hy = self.h(y.to(dt))
         return hy[slot].reshape(GP * M, D)
+
+
+# ---------------------------------------------------------------------------
+# gradient clamps (dpvo_tpu/models/blocks.py:176-207, reference
+# dpvo/blocks.py:70-107): identity forward, clipped / zeroed backward; the
+# update heads apply grad_clip while training
+# ---------------------------------------------------------------------------
+
+GRAD_CLIP = 0.1
+
+
+class _GradClip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = torch.where(torch.isnan(g), 0.0, g)
+        return g.clamp(-0.01, 0.01)
+
+
+class _GradZero(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = torch.where(torch.isnan(g), 0.0, g)
+        return torch.where(g.abs() > GRAD_CLIP, 0.0, g)
+
+
+def grad_clip(x):
+    """Identity; the backward turns NaN into 0, then clamps to +-0.01."""
+    return _GradClip.apply(x)
+
+
+def grad_zero(x):
+    """Identity; the backward turns NaN into 0, then zeroes |g| > 0.1."""
+    return _GradZero.apply(x)

@@ -1,4 +1,5 @@
-"""Weights: dpvo_tpu flat dicts <-> torch state_dicts, loading, seeded init.
+"""Weights: dpvo_tpu flat dicts <-> torch state_dicts, loading, saving,
+seeded init.
 
 dpvo_tpu keeps weights as a flat name -> array dict in its own layout
 (models/checkpoint.py:convert_torch_state_dict): conv HWIO, linear
@@ -27,6 +28,27 @@ def state_dict_from_jax(params):
             a = a.T                        # linear (in, out) -> (out, in)
         out[k] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+def jax_from_state_dict(state_dict):
+    """torch state_dict -> dpvo_tpu flat dict (name -> f32 numpy array):
+    the inverse of state_dict_from_jax (conv OIHW -> HWIO, linear (out,
+    in) -> (in, out))."""
+    out = {}
+    for k, v in state_dict.items():
+        a = v.detach().float().cpu().numpy()
+        if a.ndim == 4:                    # conv OIHW -> HWIO
+            a = a.transpose(2, 3, 1, 0)
+        elif a.ndim == 2 and k.endswith('.weight'):
+            a = a.T                        # linear (out, in) -> (in, out)
+        out[k] = np.ascontiguousarray(a)
+    return out
+
+
+def save_params_npz(state_dict, path):
+    """Writes a torch state_dict as a dpvo_tpu .npz (its load_params_npz
+    reads it, and so does load_network here)."""
+    np.savez(path, **jax_from_state_dict(state_dict))
 
 
 def load_network(path):

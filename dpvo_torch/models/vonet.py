@@ -12,7 +12,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.patchify import avg_pool2d, extract_patches
-from .blocks import GatedResidual, LayerNorm32, SoftAgg
+from .blocks import GatedResidual, LayerNorm32, SoftAgg, grad_clip
 from .checkpoint import init_vonet_params, load_network, state_dict_from_jax
 from .extractor import BasicEncoder4
 
@@ -69,22 +69,36 @@ class VONet(nn.Module):
         centroids at 1/RES scale. Returns dict with fmap1 (H/4, W/4, 128),
         fmap2 (H/16, W/16, 128), gmap (M, P, P, 128), imap (M, DIM),
         patch_xy (M, 2, P, P), clr (M, 3) f32."""
-        x = image.permute(2, 0, 1)[None].to(self.dtype)
-        fmap = (self.patchify.fnet(x)[0] / 4.0).permute(1, 2, 0)
-        imap = (self.patchify.inet(x)[0] / 4.0).permute(1, 2, 0)
+        feats = self.patchify_frames(image[None], coords[None])
+        return {k: v[0] for k, v in feats.items()}
 
-        gmap = extract_patches(fmap, coords, P // 2)
-        imap_p = extract_patches(imap, coords, 0)[:, 0, 0, :]
+    def patchify_frames(self, images, coords):
+        """patchify_frame on T frames, both encoders in one batched call
+        (instance norm is per sample): images (T, H, W, 3), coords (T, M,
+        2); every output gains a leading T axis."""
+        x = images.permute(0, 3, 1, 2).to(self.dtype)
+        fmap = (self.patchify.fnet(x) / 4.0).permute(0, 2, 3, 1)
+        imap = (self.patchify.inet(x) / 4.0).permute(0, 2, 3, 1)
+
+        def per_frame(t, radius):
+            return torch.stack([extract_patches(t[f], coords[f], radius)
+                                for f in range(coords.shape[0])])
+
+        gmap = per_frame(fmap, P // 2)
+        imap_p = per_frame(imap, 0)[:, :, 0, 0, :]
 
         off = torch.arange(-(P // 2), P // 2 + 1, dtype=torch.float32,
                            device=coords.device)
-        M = coords.shape[0]
-        gx = (coords[:, 0, None, None] + off[None, None, :]).expand(M, P, P)
-        gy = (coords[:, 1, None, None] + off[None, :, None]).expand(M, P, P)
-        patch_xy = torch.stack([gx, gy], dim=1)
+        T, M = coords.shape[:2]
+        gx = coords[..., 0, None, None] + off[None, None, :]
+        gy = coords[..., 1, None, None] + off[None, :, None]
+        patch_xy = torch.stack([gx.expand(T, M, P, P),
+                                gy.expand(T, M, P, P)], dim=2)
 
         # color at full resolution (net.py:143): bilinear at 4*(coords+0.5)
-        clr = extract_patches(image, 4.0 * (coords + 0.5), 0)[:, 0, 0, :]
+        clr = torch.stack([
+            extract_patches(images[f], 4.0 * (coords[f] + 0.5), 0)
+            for f in range(T)])[:, :, 0, 0, :]
         clr = (clr.float() + 0.5) * (255.0 / 2)
 
         fmap1 = fmap.contiguous()
@@ -141,20 +155,31 @@ class VONet(nn.Module):
 
         net = u.gru(net)
         delta = u.d(net).float()
-        weight = torch.sigmoid(u.w(net).float())
-        return net, delta, weight
+        logits = u.w(net).float()
+        if torch.is_grad_enabled():
+            # the heads' backward clamp while training (dpvo_tpu
+            # vonet.py:245-249, reference blocks.py:74-89)
+            delta, logits = grad_clip(delta), grad_clip(logits)
+        return net, delta, torch.sigmoid(logits)
 
 
-def load_vonet(network, device, mixed_precision):
-    """VONet on `device` with weights from a .pth / .npz path, or the
-    seeded random init (init_vonet_params(0)) for None / 'none' / 'random'.
-    bf16 parameters under mixed precision; inference only."""
+def init_vonet(network=None, device='cuda'):
+    """VONet with f32 parameters on `device` (trainable: the training
+    step's masters): weights from a .pth / .npz path, or the seeded random
+    init (init_vonet_params(0)) for None / 'none' / 'random'."""
     if network is None or network in ('', 'none', 'random'):
         sd = state_dict_from_jax(init_vonet_params(0))
     else:
         sd = load_network(network)
     net = VONet(device=device)
     net.load_state_dict(sd)
+    return net
+
+
+def load_vonet(network, device, mixed_precision):
+    """init_vonet(network, device) for inference: bf16 parameters under
+    mixed precision, eval mode, no gradients."""
+    net = init_vonet(network, device)
     if mixed_precision:
         net.to(torch.bfloat16)
     return net.eval().requires_grad_(False)

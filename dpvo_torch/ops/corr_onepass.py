@@ -121,24 +121,13 @@ def _check_map(name, t, dev):
         raise ValueError(f'{name} must be contiguous')
 
 
-def corr_two_level(gmap, fmap1, fmap2, coords, kk, jj, nv=None,
-                   out_dtype=torch.float32):
-    """Local correlation at both pyramid levels, one launch on the card.
-
-    gmap (Ng, 3, 3, 128); fmap1 (F, H1, W1, 128); fmap2 (F, H2, W2, 128),
-    channels-last, bf16 or f32 (one dtype); coords (E, 3, 3, 2) f32 at
-    level-1 scale; kk / jj (E,) int32 (int64 accepted on the CPU);
-    nv: int or 0-d integer tensor, edges >= nv are exact zeros (None = E).
-    Returns (E, 7, 7, 3, 3, 2) in out_dtype, layout [dx, dy, py, px, lvl]
-    (see ops/corr.py:corr_two_level)."""
-    global launches
+def check_inputs(gmap, fmap1, fmap2, coords, kk, jj):
+    """Raises unless the kernels' inputs are on a CUDA device, of the
+    layout and dtypes corr_two_level states, and contiguous (coords, kk
+    and jj are made contiguous by the callers)."""
     dev = coords.device
-    if dev.type == 'cpu':
-        return _plain.corr_two_level(gmap, fmap1, fmap2, coords, kk, jj,
-                                     nv=nv, out_dtype=out_dtype)
     if dev.type != 'cuda':
         raise ValueError(f'unsupported device {dev}')
-
     E = coords.shape[0]
     if coords.shape != (E, P, P, 2) or coords.dtype != torch.float32:
         raise ValueError(f'coords must be ({E}, {P}, {P}, 2) f32, got '
@@ -156,6 +145,25 @@ def corr_two_level(gmap, fmap1, fmap2, coords, kk, jj, nv=None,
         if t.device != dev or t.dtype != torch.int32 or t.shape != (E,):
             raise ValueError(f'{name} must be ({E},) int32 on {dev}, got '
                              f'{tuple(t.shape)} {t.dtype} on {t.device}')
+
+
+def corr_two_level(gmap, fmap1, fmap2, coords, kk, jj, nv=None,
+                   out_dtype=torch.float32):
+    """Local correlation at both pyramid levels, one launch on the card.
+
+    gmap (Ng, 3, 3, 128); fmap1 (F, H1, W1, 128); fmap2 (F, H2, W2, 128),
+    channels-last, bf16 or f32 (one dtype); coords (E, 3, 3, 2) f32 at
+    level-1 scale; kk / jj (E,) int32 (int64 accepted on the CPU);
+    nv: int or 0-d integer tensor, edges >= nv are exact zeros (None = E).
+    Returns (E, 7, 7, 3, 3, 2) in out_dtype, layout [dx, dy, py, px, lvl]
+    (see ops/corr.py:corr_two_level)."""
+    global launches
+    dev = coords.device
+    if dev.type == 'cpu':
+        return _plain.corr_two_level(gmap, fmap1, fmap2, coords, kk, jj,
+                                     nv=nv, out_dtype=out_dtype)
+    check_inputs(gmap, fmap1, fmap2, coords, kk, jj)
+    E = coords.shape[0]
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f'out_dtype must be bf16 or f32, got {out_dtype}')
     coords, kk, jj = coords.contiguous(), kk.contiguous(), jj.contiguous()

@@ -9,6 +9,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+F32_FLOP_PER_S = 67e12         # H100 SXM f32 peak outside the tensor cores
 C = 128
 
 
@@ -68,12 +69,12 @@ def map_bytes(jj, y, x, F, H, W):
     return int(mask.sum()) * C * 2
 
 
-def bound_ms(nbytes_, flops):
+def bound_ms(nbytes_, flops, flop_per_s=BF16_FLOP_PER_S):
     """The least time the card could take: the larger of the bytes over
-    HBM bandwidth and the operations over the bf16 tensor-core peak.
-    Returns (ms, 'bytes' | 'operations')."""
+    HBM bandwidth and the operations over their type's peak (the bf16
+    tensor cores' unless given). Returns (ms, 'bytes' | 'operations')."""
     tb = nbytes_ / HBM_BYTES_PER_S * 1e3
-    tf = flops / BF16_FLOP_PER_S * 1e3
+    tf = flops / flop_per_s * 1e3
     return (tb, 'bytes') if tb >= tf else (tf, 'operations')
 
 

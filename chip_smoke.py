@@ -113,6 +113,28 @@ Phases (any failure raises, so the exit code is non-zero):
      and 3 full steps, finite, K1 and the backward kernel 18 times per
      step; wall ms per step, device busy and idle share from a profiler
      trace of the last step, its top kernels, peak device memory.
+ 14. DPV-SLAM's classic loop closure (HybridVO with CLASSIC_LOOP_CLOSURE).
+     Its first line says whether the host has the cv2 module and
+     `pkg-config opencv4` (the retrieval library builds against OpenCV's
+     C++ headers and libraries; a pip cv2 wheel has neither). With both:
+     (a) default.yaml + CLASSIC_LOOP_CLOSURE at 640x480, the full-width
+     VONet, bf16, onepass, on 48 frames of dpvo_torch.accuracy's
+     out-and-back textured plane, KEYFRAME_THRESH -1 and classic_cfg's
+     retrieval keys: retrieval proposes a candidate, K1 on every update
+     iteration, finite poses; lc_count, wall / busy / idle per frame, per
+     close_loop the host ms of ORB + matching, the structure-only BA's
+     device ms, RANSAC ms and the PGO worker's submission-to-result ms,
+     peak device memory; (b) the oracle gate in f32 at 128x192 (lc_count
+     >= 1, ATE < 0.05 x the path); (c) the same scene with the trained
+     weights in bf16 and sync_pgo, CUDA against the CPU (poses 1e-2, the
+     same loops and lc_count, K1 on every update iteration); (d) the
+     structure-only BA on (b)'s first triplet, CUDA against the CPU
+     (depths 1e-4). Without them: (d) on a geometric triplet of (b)'s
+     scene, and (c)'s scene without classic LC on CUDA (K1) and on the
+     CPU, each followed by run_DPVO_PGO in a spawn pool (the ground-truth
+     loop between frames 30 and 5) and apply_pgo_result; poses 1e-2.
+     Each run prints its own K1 launches (the counts set to 0 just before
+     it); the kernels line keeps phase 4's, the main path's own count.
 The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
@@ -1217,6 +1239,277 @@ def train_on_card(dev, smi):
                 bound_by=bound[1], library_ms=None)
 
 
+def opencv_on_host():
+    """(cv2 importable, pkg-config knows opencv4): the classic backend needs
+    both, cv2 for ORB, matching and the JPEG cache, OpenCV's C++ headers
+    and libraries for the native retrieval library (a pip cv2 wheel has
+    neither)."""
+    import importlib.util
+    import shutil
+    has_cv2 = importlib.util.find_spec('cv2') is not None
+    has_pc = bool(shutil.which('pkg-config')) and subprocess.run(
+        ['pkg-config', '--exists', 'opencv4']).returncode == 0
+    return has_cv2, has_pc
+
+
+def classic_timers():
+    """Wrap the classic backend's steps (class and module attributes of
+    dpvo_torch.loop_closure.long_term) with timers; returns (calls, undo).
+    calls: per close_loop, host ms of ORB + matching, structure-only BA
+    device ms (CUDA events) and host ms, RANSAC host ms, its result; per
+    applied PGO result, host ms from submission to the result polled; the
+    arguments of the first structure-only BA."""
+    import torch
+    from dpvo_torch.loop_closure import long_term as lt
+    L = lt.LongTermLoopClosure
+    orig = dict(detect=L._detect, match=L._match, close=L.close_loop,
+                callback=L.lc_callback, tri=lt.triangulate,
+                ransac=lt.ransac_umeyama)
+    calls = dict(close=[], pgo=[], first_triplet=None)
+    cur = dict(orb=0.0, ba=0.0, ba_host=0.0, ransac=0.0)
+
+    def host(key, fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            cur[key] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def tri(*a, **k):
+        if calls['first_triplet'] is None:
+            calls['first_triplet'] = (a, k)
+        cuda = torch.device(k.get('device', 'cpu')).type == 'cuda'
+        if cuda:
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        t0 = time.perf_counter()
+        out = orig['tri'](*a, **k)
+        cur['ba_host'] += 1e3 * (time.perf_counter() - t0)
+        if cuda:
+            e1.record()
+            e1.synchronize()
+            cur['ba'] += e0.elapsed_time(e1)
+        return out
+
+    def close(self, i, j, n):
+        for key in cur:
+            cur[key] = 0.0
+        t0 = time.perf_counter()
+        ok = orig['close'](self, i, j, n)
+        calls['close'].append(dict(cur, i=i, j=j, closed=ok,
+                                   ms=1e3 * (time.perf_counter() - t0)))
+        if ok:
+            self._t_submit = time.perf_counter()
+        return ok
+
+    def callback(self, skip_if_empty=True):
+        busy = self.lc_in_progress
+        orig['callback'](self, skip_if_empty)
+        if busy and not self.lc_in_progress:
+            calls['pgo'].append(1e3 * (time.perf_counter() - self._t_submit))
+
+    L._detect = host('orb', orig['detect'])
+    L._match = host('orb', orig['match'])
+    L.close_loop = close
+    L.lc_callback = callback
+    lt.triangulate = tri
+    lt.ransac_umeyama = host('ransac', orig['ransac'])
+
+    def undo():
+        L._detect, L._match = orig['detect'], orig['match']
+        L.close_loop, L.lc_callback = orig['close'], orig['callback']
+        lt.triangulate, lt.ransac_umeyama = orig['tri'], orig['ransac']
+    return calls, undo
+
+
+def print_close_calls(calls):
+    for c in calls['close']:
+        print(f'    close_loop(i={c["i"]}, j={c["j"]}): closed {c["closed"]}, '
+              f'{c["ms"]!r} ms host: ORB + matching {c["orb"]!r} ms, '
+              f'structure-only BA {c["ba"]!r} ms device ({c["ba_host"]!r} ms '
+              f'host), RANSAC {c["ransac"]!r} ms', flush=True)
+    for ms in calls['pgo']:
+        print(f'    PGO worker: {ms!r} ms from submission to the result '
+              f'polled (host clock; the poll runs once per frame)',
+              flush=True)
+
+
+def structure_only_cpu_vs_cuda(dev, args, label):
+    """(d): the triplet's structure-only BA on CUDA and on the CPU; depths
+    within 1e-4. Returns the CUDA time per call."""
+    from dpvo_torch.loop_closure.long_term import triangulate
+    from dpvo_torch.scripts import _common as cm
+    d_cuda = triangulate(*args, device=dev)
+    d_cpu = triangulate(*args, device='cpu')
+    err = float(np.abs(d_cuda - d_cpu).max())
+    check(np.isfinite(d_cuda).all() and err <= 1e-4,
+          f'structure-only BA on {label}: CUDA vs CPU depths differ by {err}')
+    ms = cm.time_ms(lambda: triangulate(*args, device=dev), reps=10)
+    print(f'  (d) structure-only BA on {label} ({len(args[1])} keypoints, 6 '
+          f'iterations): max |depth CUDA - depth CPU| = {err!r} (bound '
+          f'1e-4); {ms!r} ms per call on CUDA (CUDA events, median of 10, '
+          f'host work and the depths\' copy back included)', flush=True)
+
+
+def classic_cpu_vs_cuda(dev):
+    """(c): classic_run with the trained weights, no oracle, bf16, sync_pgo,
+    the same seed on both devices."""
+    from dpvo_torch import accuracy as acc
+    out = {}
+    for d in (dev, 'cpu'):
+        reset_launches()
+        out[d] = acc.classic_run(d, network=WEIGHTS, oracle=False,
+                                 mixed=True)
+        out[d]['launches'] = read_launches()
+    g, c = out[dev], out['cpu']
+    err = float(np.abs(g['poses'] - c['poses']).max())
+    iters = 12 + (acc.CLASSIC_FRAMES - 8) + 12
+    k1 = g['launches']['corr_onepass']
+    print(f'  (c) trained weights, bf16, CUDA vs CPU: max |pose CUDA - pose '
+          f'CPU| = {err!r} (bound 1e-2); lc_count {g["lc_count"]} / '
+          f'{c["lc_count"]}, loops {g["loops"]} / {c["loops"]}; ATE '
+          f'{g["ate"]!r} / {c["ate"]!r} (path {g["path"]!r}); K1 launches '
+          f'{k1} of {iters} update iterations', flush=True)
+    check(np.isfinite(g['poses']).all() and err <= 1e-2,
+          f'classic CUDA vs CPU poses differ by {err}')
+    check(g['lc_count'] == c['lc_count'] and g['loops'] == c['loops'],
+          f'classic CUDA vs CPU: lc_count {g["lc_count"]} / {c["lc_count"]},'
+          f' loops {g["loops"]} / {c["loops"]}')
+    check(k1 >= iters, f'(c): K1 launched {k1} times, expected >= {iters}')
+
+
+def pgo_without_opencv(dev):
+    """The OpenCV-free part of the backend: (c)'s scene without classic
+    LC on CUDA (K1) and on the CPU; on each run's keyframe poses
+    run_DPVO_PGO in a spawn pool with the ground-truth loop Sim3 between
+    frames 30 and 5 (the same view: identity); apply_pgo_result into the
+    live state; the two devices' poses after it, and terminate()'s, within
+    1e-2."""
+    import multiprocessing as mp
+    import torch
+    from dpvo_torch import accuracy as acc
+    from dpvo_torch.loop_closure.pgo import apply_pgo_result
+    from dpvo_torch.loop_closure.pgo import run_DPVO_PGO
+    from dpvo_torch.runtime import numpy_se3 as nse3
+    i, j = 30, 5
+    gt = acc.classic_gt()
+    G = nse3.mul(gt[j], nse3.inv(gt[i]))
+    loop = np.concatenate([G, [1.0]]).astype(np.float32)[None]
+    ctx = mp.get_context('spawn')
+    res = []                      # per run, in the order dev, 'cpu'
+
+    def stop(slam):
+        slam._drain()
+        pred = nse3.inv(slam.poses_np[:slam.n])
+        ms = []
+        with ctx.Manager() as manager, ctx.Pool(1) as pool:
+            queue = manager.Queue()
+            for _ in range(2):        # a cold worker, then a warm one
+                t0 = time.perf_counter()
+                pool.apply_async(run_DPVO_PGO, (pred, loop, np.array([i]),
+                                                np.array([j]), queue)).get()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                final = queue.get()
+        apply_pgo_result(slam, final)
+        res.append(dict(ms=ms,
+                        after=slam.st.poses[:slam.n].cpu().numpy().copy()))
+
+    out = {}
+    for d in (dev, 'cpu'):
+        reset_launches()
+        out[d] = acc.classic_run(d, network=WEIGHTS, oracle=False,
+                                 mixed=True, classic=False, stop=stop)
+        out[d]['launches'] = read_launches()
+    k1 = out[dev]['launches']['corr_onepass']
+    iters = 12 + (acc.CLASSIC_FRAMES - 8) + 12
+    err_after = float(np.abs(res[0]['after'] - res[1]['after']).max())
+    err = float(np.abs(out[dev]['poses'] - out['cpu']['poses']).max())
+    print(f'  without OpenCV: (c)\'s scene without classic LC, then '
+          f'run_DPVO_PGO in a spawn pool (loop {i} -> {j}, ground truth) and '
+          f'apply_pgo_result: PGO (cold worker, warm worker) '
+          f'{res[0]["ms"]!r} / {res[1]["ms"]!r} ms per pool call (CUDA run '
+          f'/ CPU run, host clock); max |pose CUDA - pose CPU| after it {err_after!r}, '
+          f'after terminate {err!r} (bound 1e-2); K1 launches {k1} of '
+          f'{iters} update iterations', flush=True)
+    check(np.isfinite(res[0]['after']).all() and err_after <= 1e-2 and
+          err <= 1e-2, f'PGO + apply CUDA vs CPU: {err_after}, {err}')
+    check(k1 >= iters, f'K1 launched {k1} times, expected >= {iters}')
+
+
+def classic_on_card(dev, smi):
+    """Phase 14 (see the module docstring)."""
+    import torch
+    from dpvo_torch import accuracy as acc
+    t_phase = time.perf_counter()
+    has_cv2, has_pc = opencv_on_host()
+    runs = has_cv2 and has_pc
+    print(f'  OpenCV on this host: cv2 module '
+          f'{"found" if has_cv2 else "missing"}, pkg-config opencv4 '
+          f'{"found" if has_pc else "missing"}: ' +
+          ('(a)-(d) run' if runs else
+           'the classic backend cannot run here (its native retrieval '
+           'library builds against OpenCV\'s C++ headers and libraries); '
+           '(d) and the OpenCV-free part of the backend run'), flush=True)
+    if not runs:
+        args, true = acc.plane_triplet()
+        structure_only_cpu_vs_cuda(dev, args, 'a geometric triplet of (b)\'s '
+                                   'scene (frame 9, no ORB)')
+        pgo_without_opencv(dev)
+        print(f'  phase 14: {time.perf_counter() - t_phase:.1f} s',
+              flush=True)
+        return
+
+    # (a) full width
+    gt, frames, intr = acc.classic_scene(n=48, H=480, W=640)
+    over = dict(CLASSIC_LOOP_CLOSURE=True, KEYFRAME_THRESH=-1.0,
+                **acc.CLASSIC_RETRIEVAL)
+    calls, undo = classic_timers()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        launches, iters, st = main_path(
+            dev, 'default.yaml + CLASSIC_LOOP_CLOSURE', 'onepass',
+            seq=dict(images=frames, intrinsics=intr), **over)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        undo()
+    lc = st['slam'].long_term_lc
+    print(f'  (a) 48 frames of the out-and-back plane at 480x640, overrides '
+          f'of default.yaml {over}: {len(calls["close"])} retrieval '
+          f'candidates, lc_count {lc.lc_count}, loops '
+          f'{list(zip(lc.loop_ii.tolist(), lc.loop_jj.tolist()))}; K1 '
+          f'launches {launches["corr_onepass"]} of {iters} update '
+          f'iterations', flush=True)
+    print_close_calls(calls)
+    print(f'  {smi}: classic LC wall {st["wall"]!r} ms/frame, device busy '
+          f'{st["busy"]!r} ms/frame, idle share {st["idle"]!r}; peak device '
+          f'memory (max_memory_allocated) {peak / 2 ** 30!r} GiB', flush=True)
+    check(len(calls['close']) >= 1, '(a): retrieval proposed no candidate')
+    check(launches['corr_onepass'] >= iters, f'(a): K1 launched '
+          f'{launches["corr_onepass"]} times, expected >= {iters}')
+
+    # (b) the oracle gate in f32
+    calls, undo = classic_timers()
+    try:
+        r = acc.classic_run(dev)
+    finally:
+        undo()
+    print(f'  (b) oracle, f32, 36 frames at 128x192: lc_count '
+          f'{r["lc_count"]}, loops {r["loops"]}, ATE {r["ate"]!r} (path '
+          f'{r["path"]!r}, bar {0.05 * r["path"]!r})', flush=True)
+    print_close_calls(calls)
+    check(r['lc_count'] >= 1 and r['ate'] < 0.05 * r['path'],
+          f'(b): lc_count {r["lc_count"]}, ATE {r["ate"]}, path {r["path"]}')
+    check(calls['first_triplet'] is not None, '(b): no triplet triangulated')
+
+    classic_cpu_vs_cuda(dev)
+    a, k = calls['first_triplet']
+    structure_only_cpu_vs_cuda(dev, a, '(b)\'s first triplet')
+    print(f'  phase 14: {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
 def check_items(where, items, E, cap, max_pos):
     """A target-tile chain's work items as it made them (corr_probes.
     pair_work, slab_work): each of 1 .. cap edges, together every edge
@@ -1320,14 +1613,14 @@ def main():
     dev = torch.device('cuda')
     name = torch.cuda.get_device_name(0)
 
-    print('[1/13] environment', flush=True)
+    print('[1/14] environment', flush=True)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f'  torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.device_count()} device(s): {name}')
 
-    print('[2/13] build', flush=True)
+    print('[2/14] build', flush=True)
     from concurrent.futures import ThreadPoolExecutor
     from dpvo_torch.ops import corr_fused, corr_grad, corr_onepass, \
         corr_probes
@@ -1403,7 +1696,7 @@ def main():
               f'SM; ring of {sh["stages"]} stages x {sh["rows"]} rows, '
               f'{sh["warps"]} consumer warps')
 
-    print('[3/13] kernels vs plain', flush=True)
+    print('[3/14] kernels vs plain', flush=True)
     err, k_ms, p_ms, b1, staged = kernel_vs_plain(
         dev, E=49152, F=36, H1=120, W1=160, Ng=36 * 96, nv=40013, seed=0,
         timed=True)
@@ -1418,12 +1711,12 @@ def main():
           f'{streamed / 1e9!r} GB ({streamed / k2[1] / 1e9!r} TB/s)',
           flush=True)
 
-    print('[4/13] DeviceVO main path', flush=True)
+    print('[4/14] DeviceVO main path', flush=True)
     dv, dv_iters, dv_stats = main_path(dev, 'default.yaml', 'onepass')
     check(dv['corr_onepass'] >= dv_iters, f'K1 launched '
           f'{dv["corr_onepass"]} times, expected >= {dv_iters}')
 
-    print('[5/13] hybrid main path', flush=True)
+    print('[5/14] hybrid main path', flush=True)
     hy, hy_iters, hy_stats = main_path(dev, 'default.yaml + GRADIENT_BIAS',
                                        'fused_k',
                                        CENTROID_SEL_STRAT='GRADIENT_BIAS')
@@ -1446,7 +1739,7 @@ def main():
               f'{st["busy"]!r}, idle {st["idle"]!r}; correlation ms/frame: '
               f'{corr}', flush=True)
 
-    print('[6/13] DeviceVO with fused_k', flush=True)
+    print('[6/14] DeviceVO with fused_k', flush=True)
     dk, dk_iters, _ = main_path(dev, 'default.yaml', 'fused_k', n_frames=12,
                                 measure=False)
     check(dk['corr_planes'] >= dk_iters and
@@ -1454,28 +1747,31 @@ def main():
           f'K2 / K3 launched {dk}, expected >= {dk_iters} / '
           f'{2 * dk_iters}')
 
-    print('[7/13] CUDA vs CPU', flush=True)
+    print('[7/14] CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev)
 
-    print('[8/13] correlation probes', flush=True)
+    print('[8/14] correlation probes', flush=True)
     probe_entries = probes()
 
-    print('[9/13] DeviceVO on yuv420, per frame and chunked', flush=True)
+    print('[9/14] DeviceVO on yuv420, per frame and chunked', flush=True)
     ingest_and_chunks(dev, smi, dv_stats)
 
-    print('[10/13] HybridVO on yuv420, CUDA vs CPU', flush=True)
+    print('[10/14] HybridVO on yuv420, CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev, runs=(
         ('HybridVO', (256, 320), 'onepass', dict(GB, UPLOAD_FORMAT='yuv420'),
          ('corr_onepass',)),), precisions=(True,))
 
-    print('[11/13] accuracy on the card', flush=True)
+    print('[11/14] accuracy on the card', flush=True)
     accuracy_on_card(dev)
 
-    print('[12/13] DPV-SLAM (learned loop closure) on the card', flush=True)
+    print('[12/14] DPV-SLAM (learned loop closure) on the card', flush=True)
     dpv_slam_on_card(dev, smi)
 
-    print('[13/13] training on the card', flush=True)
+    print('[13/14] training on the card', flush=True)
     backward_entry = train_on_card(dev, smi)
+
+    print('[14/14] classic loop closure on the card', flush=True)
+    classic_on_card(dev, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return dict(name=name, route='cuda', source=source,

@@ -15,6 +15,12 @@
   (make_sequence(loop=True)): lc_run runs the runtime with or without
   LOOP_CLOSURE, with a network or with gt_oracle, the ground-truth
   reprojection targets from the sequence's poses and inverse depths.
+* the classic loop closure's scene (dpvo_tpu's tests/test_classic_lc.py):
+  an out-and-back pan over a textured world plane (classic_scene), so that
+  revisits render near-identical frames and retrieval, ORB matching and
+  triangulation run on real signal; classic_run runs HybridVO with
+  CLASSIC_LOOP_CLOSURE on it, with plane_oracle or a network. sync_pgo is
+  the seam that makes such runs deterministic.
 """
 from __future__ import annotations
 
@@ -277,3 +283,173 @@ def lc_run(seq, loop_closure, *, device, network=None, oracle=False,
                 path=path_length(seq['wfc']),
                 n_loop=int(getattr(slam, '_n_loop_edges', 0)), poses=poses,
                 slam=slam)
+
+
+# ---------------------------------------------------------------------------
+# the classic loop closure's scene
+# ---------------------------------------------------------------------------
+
+# test_classic_lc.py's retrieval settings: default.yaml's 50-frame radius
+# is longer than its 36-frame sequence
+CLASSIC_RETRIEVAL = dict(LOOP_RETR_RAD=8, LOOP_CLOSE_WINDOW_SIZE=2,
+                         LOOP_RETR_THRESH=0.005)
+CLASSIC_HW = (128, 192)
+CLASSIC_FRAMES = 36
+
+
+def textured_frames(n, H=96, W=128, seed=0):
+    """test_classic_lc.py's pan over seeded blobs and edges (ORB finds
+    corners on them), out and back: frames t and n - 1 - t are equal."""
+    rng = np.random.RandomState(seed)
+    base = np.zeros((H * 3, W * 3), np.uint8)
+    for _ in range(300):
+        y, x = rng.randint(0, H * 3 - 12), rng.randint(0, W * 3 - 12)
+        base[y:y + rng.randint(3, 12), x:x + rng.randint(3, 12)] = \
+            rng.randint(0, 255)
+    base = np.stack([base] * 3, -1)
+    out = []
+    for t in range(n):
+        s = t if t < n // 2 else (n - 1 - t)
+        out.append(base[2 * s:2 * s + H, 3 * s:3 * s + W].copy())
+    return out
+
+
+def render_plane_sequence(gt_cfw, H, W, intr, plane_z=PLANE_Z, seed=7):
+    """Views of a blocky textured world plane z = plane_z (inverse warp;
+    test_classic_lc.py's _render_plane_sequence): (H, W, 3) uint8 frames
+    for the (T, 7) cam-from-world poses."""
+    rng = np.random.RandomState(seed)
+    T = 1024
+    tex = rng.randint(0, 255, (T // 8, T // 8)).astype(np.float32)
+    tex = np.kron(tex, np.ones((8, 8), np.float32))
+    fx, fy, cx, cy = intr
+
+    u, v = np.meshgrid(np.arange(W, dtype=np.float32),
+                       np.arange(H, dtype=np.float32))
+    rays = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u)], -1)
+
+    frames = []
+    for P_cfw in np.asarray(gt_cfw, np.float32):
+        wfc = nse3.inv(P_cfw)
+        o = wfc[:3]
+        d = nse3.quat_rotate(np.broadcast_to(wfc[3:7], rays.shape[:2] + (4,)),
+                             rays)
+        lam = (plane_z - o[2]) / d[..., 2]
+        Xw = o[None, None, :] + lam[..., None] * d
+        tx = np.mod(Xw[..., 0] * 160.0, T).astype(np.int64)
+        ty = np.mod(Xw[..., 1] * 160.0, T).astype(np.int64)
+        img = tex[ty % tex.shape[0], tx % tex.shape[1]]
+        frames.append(np.stack([img] * 3, -1).astype(np.uint8))
+    return frames
+
+
+def classic_gt(n=CLASSIC_FRAMES, amplitude=1.5):
+    """(n, 7) cam-from-world: out and back along x, x = amplitude sin(pi t
+    / (n - 1)), so frames k and n - 1 - k see the same view."""
+    gt = np.zeros((n, 7), np.float32)
+    for t in range(n):
+        x = amplitude * np.sin(np.pi * t / (n - 1))
+        gt[t] = nse3.inv(np.array([x, 0, 0, 0, 0, 0, 1], np.float32))
+    return gt
+
+
+def classic_scene(n=CLASSIC_FRAMES, H=CLASSIC_HW[0], W=CLASSIC_HW[1]):
+    """(gt cam-from-world, frames, intrinsics) of test_classic_lc.py's
+    closed-loop scene, the focal length 160 px at 128x192 scaled with W."""
+    f = 160.0 * W / 192
+    intr = np.array([f, f, W / 2, H / 2], np.float32)
+    gt = classic_gt(n)
+    return gt, render_plane_sequence(gt, H, W, intr), intr
+
+
+def classic_cfg(mixed=False):
+    """test_classic_lc.py's config: oracle_cfg(-1) with the classic
+    backend and its retrieval settings."""
+    cfg = oracle_cfg(-1.0)
+    cfg.MIXED_PRECISION = bool(mixed)
+    cfg.CLASSIC_LOOP_CLOSURE = True
+    for k, v in CLASSIC_RETRIEVAL.items():
+        cfg[k] = v
+    return cfg
+
+
+def sync_pgo(lc):
+    """Make a LongTermLoopClosure instance (the port's or dpvo_tpu's) apply
+    each pose-graph result as soon as its close_loop succeeds, instead of
+    whenever the worker happens to finish: the seam that makes CPU / CUDA
+    and port / dpvo_tpu runs comparable. Nothing on the runtime path calls
+    it. Returns lc."""
+    close_loop = lc.close_loop
+
+    def synced(i, j, n):
+        closed = close_loop(i, j, n)
+        if closed:
+            lc.lc_callback(skip_if_empty=False)
+        return closed
+
+    lc.close_loop = synced
+    return lc
+
+
+def classic_run(device, *, network=None, oracle=True, mixed=False,
+                scene=None, classic=True, stop=None):
+    """HybridVO with classic_cfg on classic_scene (or `scene`, its triple),
+    seed 3, with plane_oracle's targets or `network` (a weights path, None
+    for seeded random weights), constant depth seeds, the motion probe
+    forced and sync_pgo; classic=False runs the same without the classic
+    backend. With `stop`, stop(slam) runs after the frames and before
+    terminate(). Returns dict(poses (T, 7) world-from-camera, ate, path,
+    lc_count, loops [(i, j)], slam)."""
+    gt, frames, intr = scene or classic_scene()
+    H, W, _ = frames[0].shape
+    cfg = classic_cfg(mixed)
+    cfg.CLASSIC_LOOP_CLOSURE = bool(classic)
+    slam = HybridVO(cfg, network, ht=H, wd=W, seed=3, device=device)
+    lc = slam.long_term_lc
+    if lc is not None:
+        sync_pgo(lc)
+    if oracle:
+        slam._oracle = plane_oracle(gt)
+    slam.motion_probe = lambda: 100.0
+    slam.rng = ConstDepthRng(slam.rng)
+    for t, img in enumerate(frames):
+        slam(t, img, intr)
+    if stop is not None:
+        stop(slam)
+    poses, tstamps = slam.terminate()
+    gt_wfc = nse3.inv(gt)
+    loops = ([] if lc is None else
+             list(zip(lc.loop_ii.tolist(), lc.loop_jj.tolist())))
+    return dict(poses=poses, ate=trajectory_ate(poses, tstamps, gt_wfc),
+                path=path_length(gt_wfc), lc_count=lc and lc.lc_count,
+                loops=loops, slam=slam)
+
+
+def plane_triplet(i=9, n=512):
+    """A keypoint triplet of classic_scene for the structure-only BA, from
+    the scene's geometry instead of ORB: n seeded pixels of frame i at full
+    resolution, their targets in frames i - 1 and i + 1 (projected through
+    the plane with the ground-truth poses, plus 0.3 px of seeded Gaussian
+    noise), depth seeds 0.4. Returns (triangulate's arguments (poses3, xy,
+    depth, intr, target), the true inverse depths (n,))."""
+    gt = classic_gt()
+    H, W = CLASSIC_HW
+    intr = np.array([160.0, 160.0, W / 2, H / 2], np.float32)
+    fx, fy, cx, cy = intr
+    rng = np.random.RandomState(0)
+    xy = (rng.rand(n, 2) * [W - 1, H - 1]).astype(np.float32)
+    d_c = np.stack([(xy[:, 0] - cx) / fx, (xy[:, 1] - cy) / fy,
+                    np.ones(n, np.float32)], -1)
+    wfc = nse3.inv(gt[i])
+    d_w = nse3.quat_rotate(np.broadcast_to(wfc[3:7], (n, 4)), d_c)
+    X_w = wfc[:3] + ((PLANE_Z - wfc[2]) / d_w[:, 2])[:, None] * d_w
+    inv_depth = 1.0 / nse3.act(np.broadcast_to(gt[i], (n, 7)), X_w)[:, 2]
+    target = []
+    for f in (i - 1, i + 1):
+        X = nse3.act(np.broadcast_to(gt[f], (n, 7)), X_w)
+        target.append(np.stack([fx * X[:, 0] / X[:, 2] + cx,
+                                fy * X[:, 1] / X[:, 2] + cy], -1))
+    target = (np.concatenate(target) +
+              0.3 * rng.randn(2 * n, 2)).astype(np.float32)
+    return ((gt[i - 1:i + 2].copy(), xy, np.full(n, 0.4, np.float32),
+             intr, target), inv_depth.astype(np.float32))

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import lie
-from .ba_pairs import _seg, clamp_start, solve_step
+from .ba_pairs import _seg, clamp_start, retract_depth, solve_step
 
 
 def _linearize(poses, xy, depth, intrinsics, target, weight, ii, jj, kk,
@@ -111,13 +111,16 @@ def _gather_blocks(r, w, Ji, Jj, Jz, ii, jj, kk, t0, patch_base, W, PC):
 
 def bundle_adjust(poses, xy, depth, intrinsics, target, weight, lmbda,
                   ii, jj, kk, mask, t0, t1, patch_base, *, W, PC,
-                  iterations=2):
+                  iterations=2, structure_only=False):
     """Windowed Gauss-Newton bundle adjustment over an edge table.
 
     poses (N, 7); xy (Np, 2) patch centers; depth (Np,); intrinsics (4,);
     target / weight (E, 2); ii / jj / kk (E,) int; mask (E,) bool; host ints
     t0, t1 (pose window [t0, t1), at most W slots) and patch_base (depth
-    window of PC patches). Returns new (poses, depth); inputs untouched."""
+    window of PC patches). With structure_only the poses stay as they are
+    and each step moves the depths alone, by Q u (zeroed unless every
+    entry is finite; dpvo_tpu/ba.py:194-197): the classic loop closure's
+    triangulation. Returns new (poses, depth); inputs untouched."""
     ii, jj, kk = ii.long(), jj.long(), kk.long()
     s = clamp_start(patch_base, PC, depth.shape[0])
     for _ in range(iterations):
@@ -125,6 +128,11 @@ def bundle_adjust(poses, xy, depth, intrinsics, target, weight, lmbda,
                                       weight, ii, jj, kk, mask)
         B, Em, C, v, u, touched = _gather_blocks(
             r, w, Ji, Jj, Jz, ii, jj, kk, t0, patch_base, W, PC)
-        poses, depth = solve_step(poses, depth, B, Em, C, v, u, touched,
-                                  lmbda, t0, t1, s)
+        if structure_only:
+            dZ = (1.0 / (C + lmbda)) * u
+            dZ = torch.where(torch.isfinite(dZ).all(), dZ, 0.0)
+            depth = retract_depth(depth, dZ, touched, s)
+        else:
+            poses, depth = solve_step(poses, depth, B, Em, C, v, u, touched,
+                                      lmbda, t0, t1, s)
     return poses, depth

@@ -124,12 +124,18 @@ def solve_step(poses, depth, B, Em, C, v, u, touched, lmbda, t0, t1, s):
     if hi > t0:
         poses[t0:hi] = lie.se3_retr(poses[t0:hi], dX[:hi - t0])
 
-    dslot = depth[s:s + PC]
+    return poses, retract_depth(depth, dZ, touched, s)
+
+
+def retract_depth(depth, dZ, touched, s):
+    """depth[s:s + PC] += dZ on the touched slots, then the clamps (d > 20
+    -> 1, d >= 1e-4; ba_cuda.cu:209-229). Returns a new tensor."""
+    dslot = depth[s:s + dZ.shape[0]]
     dnew = dslot + dZ
     dnew = torch.where(dnew > 20.0, 1.0, dnew).clamp(min=1e-4)
     depth = depth.clone()
-    depth[s:s + PC] = torch.where(touched > 0, dnew, dslot)
-    return poses, depth
+    depth[s:s + dZ.shape[0]] = torch.where(touched > 0, dnew, dslot)
+    return depth
 
 
 def bundle_adjust_pairs(poses, centers, depth, intr, target, weight, lmbda,

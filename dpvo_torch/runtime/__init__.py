@@ -4,11 +4,12 @@ Two implementations behind one constructor, as in dpvo_tpu:
   * DeviceVO (runtime/device_vo.py) -- the pure-VO state machine on the
     device, one keyframe-test read back per frame;
   * HybridVO (runtime/dpvo.py) -- host-orchestrated, for every other
-    config: GRADIENT_BIAS centroids and DPV-SLAM's learned loop closure
+    config: GRADIENT_BIAS centroids, DPV-SLAM's learned loop closure
     (LOOP_CLOSURE: proximity edges, the inactive edge store, gauge
-    normalization and global BA). Classic loop closure and the viewer are
-    not ported yet and raise NotImplementedError (ROADMAP.md queue 1,
-    items D.2 and C).
+    normalization and global BA) and its classic one (CLASSIC_LOOP_CLOSURE:
+    BoW retrieval, structure-only triangulation, RANSAC-Umeyama and the
+    Sim3 pose-graph worker). The viewer is not ported yet and raises
+    NotImplementedError (ROADMAP.md queue 1, item C).
 """
 from .device_driver import DeviceVO
 from .dpvo import HybridVO

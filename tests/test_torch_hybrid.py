@@ -159,7 +159,6 @@ def test_gather_rows_and_probe_median_match_jax():
 
 
 @pytest.mark.parametrize('key, value, viz', [
-    ('CLASSIC_LOOP_CLOSURE', True, False),
     ('CENTROID_SEL_STRAT', 'GRADIENT_BIAS', True)])
 def test_unported_options_raise(key, value, viz):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
@@ -169,18 +168,23 @@ def test_unported_options_raise(key, value, viz):
 
 @pytest.mark.parametrize('key, value', [('UPLOAD_FORMAT', 'yuv420'),
                                         ('MIRROR_PIPELINE', 2),
-                                        ('LOOP_CLOSURE', True)])
+                                        ('LOOP_CLOSURE', True),
+                                        ('CLASSIC_LOOP_CLOSURE', True)])
 def test_ported_options_accepted(key, value):
     """I420 ingest is ported (test_torch_ingest.py holds it against
     dpvo_tpu); MIRROR_PIPELINE > 1 runs synchronously; LOOP_CLOSURE runs
     the learned backend with a MAX_EDGE_AGE-frame feature ring
-    (test_torch_loop_closure.py)."""
+    (test_torch_loop_closure.py); CLASSIC_LOOP_CLOSURE builds the classic
+    backend (test_torch_classic_lc.py)."""
     vo = HybridVO(_cfg(torch_cfg, **{key: value}), NPZ, ht=H, wd=W,
                   device='cpu')
     assert vo._upload == ('yuv420' if key == 'UPLOAD_FORMAT' else 'rgb')
     lc = key == 'LOOP_CLOSURE'
     assert vo.pmem == (torch_cfg.MAX_EDGE_AGE if lc else vo.mem)
     assert vo.st.gmap.shape[0] == vo.pmem * vo.M
+    assert (vo.long_term_lc is not None) == (key == 'CLASSIC_LOOP_CLOSURE')
+    if vo.long_term_lc is not None:
+        vo.long_term_lc.close()
 
 
 def test_mirror_pipeline_gives_the_synchronous_poses():

@@ -194,18 +194,18 @@ def test_buffer_guard():
 
 
 @pytest.mark.parametrize('key, value, ported', [
-    ('LOOP_CLOSURE', True, True), ('CLASSIC_LOOP_CLOSURE', True, False),
+    ('LOOP_CLOSURE', True, True), ('CLASSIC_LOOP_CLOSURE', True, True),
     ('CENTROID_SEL_STRAT', 'GRADIENT_BIAS', True)])
 def test_hybrid_configs_not_ported(key, value, ported):
     """Configs that are not pure VO go to the hybrid runtime: GRADIENT_BIAS
-    centroids and the learned loop closure are ported; classic loop closure
-    raises, naming its ROADMAP item."""
+    centroids and both loop closures are ported."""
     from dpvo_torch.runtime import HybridVO
     c = _cfg(torch_cfg, **{key: value})
     if ported:
-        assert isinstance(TorchDPVO(c, NPZ, ht=H, wd=W, device='cpu'),
-                          HybridVO)
+        vo = TorchDPVO(c, NPZ, ht=H, wd=W, device='cpu')
+        assert isinstance(vo, HybridVO)
+        if vo.long_term_lc is not None:
+            vo.long_term_lc.close()
         return
-    with pytest.raises(NotImplementedError,
-                       match='classic loop closure .* item D.2'):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         TorchDPVO(c, NPZ, ht=H, wd=W, device='cpu')

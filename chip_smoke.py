@@ -141,6 +141,7 @@ The last two lines of stdout are a JSON line with the kernels' numbers and
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -966,18 +967,13 @@ def dpv_slam_on_card(dev, smi):
     print(f'  phase 12: {time.perf_counter() - t_phase:.1f} s', flush=True)
 
 
-def backward_vs_plain(dev, dtype, seed):
-    """Phase 13: the correlation backward kernel against corr_backward_plain
-    at the reference training size: edge_schedule(15, 80, 18)'s final
-    18,000 edges (its kk and jj), 15 frames of 120x160 and 30x40 maps, Ng =
-    1,200, coords spread as corr_case spreads them, a N(0, 1) output
-    gradient. Tolerance: f32 maps 1e-5 * max|plain| (the kernel sums with
-    atomics, in an order that changes from run to run); bf16 maps, whose
-    gradients are rounded once to bf16, one bf16 rounding more (2^-8 *
-    |plain|). Returns (max_abs_err, kernel ms, plain ms, (bound ms, side),
-    device ms)."""
+def backward_case(dev, dtype, seed):
+    """Phase 13's backward inputs at the reference training size:
+    edge_schedule(15, 80, 18)'s final 18,000 edges (its kk and jj), 15
+    frames of 120x160 and 30x40 maps in `dtype`, Ng = 1,200, coords spread
+    as corr_case spreads them (1/16 of the edges up to ~18 px), a N(0, 1)
+    output gradient. Returns (corr_backward's arguments, kk as numpy)."""
     import torch
-    from dpvo_torch.ops.corr_grad import corr_backward, corr_backward_plain
     from dpvo_torch.scripts import _common as cm
     from dpvo_torch.train.trainer import edge_schedule
     _, jj, kk, *_ = edge_schedule(15, 80, 18)[-1]
@@ -985,40 +981,99 @@ def backward_vs_plain(dev, dtype, seed):
     gmap, f1, f2, coords, _, _ = corr_case(E, F, H1, W1, Ng, seed, kk=kk)
     maps = [torch.from_numpy(a).to(dev).to(dtype) for a in (gmap, f1, f2)]
     co = torch.from_numpy(coords).to(dev)
-    kk_t, jj_t = cm.ints(kk, dev), cm.ints(jj, dev)
     go = cm.normal(np.random.default_rng(seed), (E, 7, 7, 3, 3, 2), dev,
                    torch.float32)
-    args = (*maps, co, kk_t, jj_t, go)
+    return (*maps, co, cm.ints(kk, dev), cm.ints(jj, dev), go), kk
+
+
+def backward_kernels_us(fn, reps=10):
+    """{kernel: mean device us per launch} of the kernels of reps calls of
+    fn (corr_backward's bw_prep, bw_frames, bw_tiles by those names, the
+    others by the first 40 characters of theirs), from a profiler trace:
+    each name's device time over its own count of launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    tot, cnt = {}, {}
+    for e in prof.key_averages():
+        if e.device_time_total <= 0 or not e.count:
+            continue
+        m = re.search(r'(bw_\w+)', e.key)
+        name = m.group(1) if m else e.key[:40]
+        tot[name] = tot.get(name, 0.0) + e.device_time_total
+        cnt[name] = cnt.get(name, 0) + e.count
+    return {k: tot[k] / cnt[k] for k in tot}
+
+
+def backward_vs_plain(dev, dtype, seed):
+    """Phase 13: the correlation backward kernels against
+    corr_backward_plain on backward_case's inputs. Tolerance: f32 maps
+    1e-5 * max|plain| (another sum order; dgmap's atomics change it from
+    run to run); bf16 maps, whose gradients are rounded once to bf16, one
+    bf16 rounding more (2^-8 * |plain|). dfmap1 / dfmap2 must be
+    bit-identical over two launches (each tile summed by one block in a
+    fixed order). Prints the work the binning made (entries, batches,
+    pixels summed with their box and on their own, dgmap atomics), the
+    kernels' device us, and the device time with 80% of the output-gradient
+    rows zero (the trainer's backward edge dropout), also held against
+    plain. Returns (max_abs_err, kernel ms, plain ms, (bound ms, side),
+    device ms)."""
+    import torch
+    from dpvo_torch.ops import corr_grad
+    from dpvo_torch.ops.corr_grad import corr_backward, corr_backward_plain
+    from dpvo_torch.scripts import _common as cm
+    args, kk = backward_case(dev, dtype, seed)
+    maps, (co, kk_t, jj_t, go) = args[:3], args[3:]
+    E = co.shape[0]
+    F, H1, W1 = maps[1].shape[:3]
+
+    def against_plain(label, got, ref):
+        err = 0.0
+        for name, a, b in zip(('dgmap', 'dfmap1', 'dfmap2'), got, ref):
+            check(a.shape == b.shape and a.dtype == dtype, f'{name} '
+                  f'{tuple(a.shape)} {a.dtype}')
+            check(bool(torch.isfinite(a).all()), f'{name} not finite')
+            m = b.abs().max().item()
+            d = (a.float() - b).abs()
+            bound = 1e-5 * m + (2 ** -8 * b.abs() if dtype == torch.bfloat16
+                                else 0.0)
+            check(bool((d <= bound).all()), f'corr_backward {name} ({dtype}'
+                  f', {label}) vs plain: max |err| {d.max().item()} at '
+                  f'max|plain| {m}')
+            err = max(err, d.max().item())
+            print(f'  {name} ({label}): max|kernel - plain| '
+                  f'{d.max().item()!r} at max|plain| {m!r}', flush=True)
+        return err
+
     got = corr_backward(*args)
+    again = corr_backward(*args)
     ref = corr_backward_plain(*args)
     torch.cuda.synchronize()
-    err = 0.0
-    for name, a, b in zip(('dgmap', 'dfmap1', 'dfmap2'), got, ref):
-        check(a.shape == b.shape and a.dtype == dtype, f'{name} '
-              f'{tuple(a.shape)} {a.dtype}')
-        check(bool(torch.isfinite(a).all()), f'{name} not finite')
-        m = b.abs().max().item()
-        d = (a.float() - b).abs()
-        bound = 1e-5 * m + (2 ** -8 * b.abs() if dtype == torch.bfloat16
-                            else 0.0)
-        check(bool((d <= bound).all()), f'corr_backward {name} ({dtype}) vs '
-              f'plain: max |err| {d.max().item()} at max|plain| {m}')
-        err = max(err, d.max().item())
-        print(f'  {name}: max|kernel - plain| {d.max().item()!r} at '
-              f'max|plain| {m!r}', flush=True)
+    err = against_plain('all rows', got, ref)
+    same = [torch.equal(a, b) for a, b in zip(got[1:], again[1:])]
+    check(all(same), f'dfmap1 / dfmap2 not bit-identical over two launches '
+          f'({same})')
+    dg_spread = (got[0].float() - again[0].float()).abs().max().item()
+    print(f'  dfmap1, dfmap2 bit-identical over two launches; dgmap (f32 '
+          f'atomics) differs by {dg_spread!r}', flush=True)
+    del again, ref
     k_ms = cm.time_ms(lambda: corr_backward(*args))
     p_ms = cm.time_ms(lambda: corr_backward_plain(*args))
     dev_ms, _ = cm.device_ms(lambda: corr_backward(*args), rounds=3, reps=5)
     # bound: the g rows of the distinct kk, the map pixels the windows
     # touch, coords, kk, jj and the output gradient read once; the three
     # gradients written once, whole maps at the maps' element size (what
-    # the wrapper returns; its f32 accumulation buffers are the design's
-    # cost, not the function's); per in-map tap and channel dg += d * f and
+    # the wrapper returns); per in-map tap and channel dg += d * f and
     # df += d * g: 4 f32 operations on the CUDA cores (67 TFLOP/s; no
     # tensor-core work)
     r = torch.arange(8, device=dev) - 3
     el = maps[0].element_size()
-    nb = cm.nbytes(co, kk_t, jj_t, go) + sum(g.numel() for g in ref) * el
+    nb = cm.nbytes(co, kk_t, jj_t, go) + sum(m.numel() for m in maps) * el
     nb += len(set(kk.tolist())) * 9 * 128 * el
     taps = 0
     for fm, c in ((maps[1], co), (maps[2], co / 4.0)):
@@ -1031,13 +1086,45 @@ def backward_vs_plain(dev, dtype, seed):
         taps += int(((y >= 0) & (y < fm.shape[1]) & (x >= 0) &
                      (x < fm.shape[2])).sum())
     bound = cm.bound_ms(nb, 4 * 128 * taps, cm.F32_FLOP_PER_S)
-    print(f'  corr_backward ({dtype} maps, E = {E}, 15 frames of '
-          f'{H1}x{W1} / {H1 // 4}x{W1 // 4}, Ng = {Ng}): kernel '
-          f'{k_ms!r} ms alone (median of 20), device {dev_ms!r} ms '
+    thr, smem, per_sm = corr_grad.occupancy(dtype)
+    work = corr_grad.backward_work(*args)
+    st, masks = work['stats'], work['masks']
+    entries = int(st[:, 0].sum() + st[:, 1].sum())
+    n_items = int(st[:, 3].sum())
+    own = sum(int(((masks >> (9 + p)) & 1).sum()) for p in range(9))
+    boxed = sum(int(((masks >> p) & 1).sum()) for p in range(9))
+    us = backward_kernels_us(lambda: corr_backward(*args))
+    print(f'  corr_backward ({dtype} maps, E = {E}, {F} frames of '
+          f'{H1}x{W1} / {H1 // 4}x{W1 // 4}, Ng = {maps[0].shape[0]}): '
+          f'kernels {k_ms!r} ms alone (median of 20), device {dev_ms!r} ms '
           f'(back-to-back), plain {p_ms!r} ms; bound {bound[0]!r} ms '
           f'({bound[1]}: {nb / 1e6:.1f} MB, {taps} in-map taps, '
-          f'{4 * 128 * taps / 1e9:.2f} GFLOP f32); map atomics '
-          f'{128 * taps}', flush=True)
+          f'{4 * 128 * taps / 1e9:.2f} GFLOP f32)', flush=True)
+    print(f'  tiles {corr_grad.TILES[dtype]} (level 1, level 2: rows x '
+          f'columns), {work["tiles"]} blocks, {thr} threads, {smem} B '
+          f'shared, {per_sm} blocks per SM; device us per call '
+          f'{ {k: round(v, 3) for k, v in us.items()} }', flush=True)
+    print(f'  binning: {entries} entries ({int(st[:, 0].sum())} box, '
+          f'{int(st[:, 1].sum())} one pixel) in {n_items} batches of at '
+          f'most 256 ({entries / max(n_items, 1):.2f} entries per batch, '
+          f'at most {int((st[:, 0] + st[:, 1]).max())} entries in a tile); '
+          f'edge pixels summed with their box {boxed}, on their own {own}; '
+          f'dgmap atomics {128 * int(st[:, 2].sum())} (one per entry, pixel '
+          f'with a tap in the tile and channel; the atomics design issued '
+          f'{E * 2 * 9 * 128} on dgmap and {128 * taps} on the maps); '
+          f'global atomics on dfmap1 / dfmap2: 0', flush=True)
+    del work
+    # the trainer's backward edge dropout: 80% of the rows zero
+    keep = torch.from_numpy(np.random.RandomState(seed).rand(E) < 0.2)
+    go80 = go * keep.to(dev)[:, None, None, None, None, None]
+    args80 = (*maps, co, kk_t, jj_t, go80)
+    against_plain('80% rows zero', corr_backward(*args80),
+                  corr_backward_plain(*args80))
+    z_ms, f_ms, ratios = cm.time_paired(lambda: corr_backward(*args80),
+                                        lambda: corr_backward(*args))
+    print(f'  80% of the output-gradient rows zero: device {z_ms!r} ms in '
+          f'turns with all rows {f_ms!r} ms, ratio {z_ms / f_ms!r} (rounds '
+          f'{min(ratios)!r} .. {max(ratios)!r})', flush=True)
     return err, k_ms, p_ms, bound, dev_ms
 
 
@@ -1209,7 +1296,10 @@ def train_reference_size(dev, smi, n_full=3):
           f'(max_memory_allocated) {peak / 2 ** 30!r} GiB', flush=True)
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f'    {v:9.3f} ms/step  {k[:100]}')
-    sys.stdout.flush()
+    bw = {re.search(r'bw_\w+', k).group(0): v for k, v in by_name.items()
+          if re.search(r'bw_\w+', k)}
+    print(f'  corr_backward\'s kernels: {sum(bw.values())!r} ms/step '
+          f'{bw}', flush=True)
     return launches
 
 

@@ -8,10 +8,14 @@ each tap from the maps, so autograd keeps only the maps and the coords,
 which the training step holds anyway. At the reference training size the
 gathered windows of ops/corr.py would come to ~105 GB per train step.
 
-The backward is `corr_backward`: on the card the hand-written kernel
-csrc/corr_backward.cu, which has no TPU counterpart (dpvo_tpu takes this
+The backward is `corr_backward`: on the card the hand-written kernels of
+csrc/corr_backward.cu, which have no TPU counterpart (dpvo_tpu takes this
 gradient by XLA autodiff of ops/corr.py:corr, train/trainer.py:220); on the
-CPU `corr_backward_plain`, the same function in plain PyTorch. No gradient
+CPU `corr_backward_plain`, the same function in plain PyTorch. The card's
+design bins the edges by target tile on the device and sums each tile's map
+gradient in shared memory, one block per tile, so dfmap1 and dfmap2 are
+written once, with no atomics, and are bit-identical from run to run;
+`backward_work` reads back what the binning made of a call. No gradient
 flows to the coords: the reference kernel's backward returns none
 (altcorr/correlation.py:26-30), which is why dpvo_tpu detaches them.
 
@@ -36,6 +40,11 @@ _CHUNK = 1024
 # kernel launches made by corr_backward (a plain count; callers reset it)
 backward_launches = 0
 
+# the tiles' (rows, columns) of map positions at level 1 and level 2, by
+# the maps' dtype: one block per tile (csrc/corr_backward.cu:bw_tiles),
+# two blocks per SM (scripts/ring_sweep.py --backward sweeps them)
+TILES = {torch.bfloat16: ((12, 8), (8, 8)), torch.float32: ((8, 8), (8, 8))}
+
 _lib = None
 
 
@@ -45,12 +54,53 @@ def build():
     global _lib
     lib, so = cuda_lib.load('corr_backward')
     if _lib is None:
-        fn = lib.corr_backward_launch
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        P_, I_ = ctypes.c_void_p, ctypes.c_int
+        cuda_lib.bind(lib, {
+            'corr_backward_launch': [P_] * 11 + [I_] * 13 + [P_],
+            'corr_backward_plan': [I_] * 11 + [ctypes.POINTER(
+                ctypes.c_longlong)],
+            'corr_backward_occupancy': [I_] * 6 + [ctypes.POINTER(I_)] * 3,
+        })
         _lib = lib
     return so
+
+
+def _tiles(dtype, tiles):
+    """[th1, tw1, th2, tw2] of `tiles`, or of TILES[dtype] when None."""
+    t = TILES[dtype] if tiles is None else tiles
+    return [int(v) for lv in t for v in lv]
+
+
+def plan(E, F, H1, W1, H2, W2, dtype=torch.bfloat16, tiles=None):
+    """The kernel's scratch and tiles for a call (tiles as TILES gives
+    them): {'bytes', 'tiles' (level 1, level 2), 'stats_at', 'rec_at'
+    (byte offsets in the scratch), 'smem' (the tile kernel's shared
+    bytes)}. Raises for tiles that do not fit a block's shared memory."""
+    if _lib is None:
+        build()
+    out = (ctypes.c_longlong * 6)()
+    err = _lib.corr_backward_plan(E, F, H1, W1, H2, W2,
+                                  *_tiles(dtype, tiles),
+                                  int(dtype == torch.bfloat16), out)
+    if err != 0:
+        raise ValueError(f'corr_backward: tiles {tiles or TILES[dtype]} do '
+                         f'not fit a block ({dtype} maps)')
+    return dict(bytes=out[0], tiles=(out[1], out[2]), stats_at=out[3],
+                rec_at=out[4], smem=out[5])
+
+
+def occupancy(dtype=torch.bfloat16, tiles=None, device=0):
+    """(threads, shared bytes, blocks per SM) of the tile kernel for these
+    maps and tiles, as the CUDA runtime reports it on `device`."""
+    if _lib is None:
+        build()
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = _lib.corr_backward_occupancy(
+        *_tiles(dtype, tiles), int(dtype == torch.bfloat16), device,
+        *(ctypes.byref(v) for v in vals))
+    if err != 0:
+        raise RuntimeError(f'corr_backward_occupancy: CUDA error {err}')
+    return tuple(v.value for v in vals)
 
 
 def _level_backward(gmap, fmap, c, kk, jj, go, dg, df):
@@ -109,21 +159,10 @@ def corr_backward_plain(gmap, fmap1, fmap2, coords, kk, jj, grad_out):
             dfs[1].reshape(fmap2.shape))
 
 
-def corr_backward(gmap, fmap1, fmap2, coords, kk, jj, grad_out):
-    """corr_backward_plain's function, on the card through the kernel.
-
-    Inputs as corr_onepass.corr_two_level takes them (gmap, fmap1, fmap2
-    channels-last, one dtype, bf16 or f32; coords f32; kk / jj int32 on
-    the card) and grad_out (E, 7, 7, 3, 3, 2) f32. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise. Returns
-    (dgmap, dfmap1, dfmap2) in the maps' dtype: summed in f32 (atomics, in
-    an order that changes from run to run) and rounded once."""
+def _launch(gmap, fmap1, fmap2, coords, kk, jj, grad_out, tiles=None):
+    """The kernels on CUDA inputs: (dgmap, dfmap1, dfmap2 in the maps'
+    dtype, the scratch, the plan)."""
     global backward_launches
-    if coords.device.type == 'cpu':
-        grads = corr_backward_plain(gmap, fmap1, fmap2, coords, kk, jj,
-                                    grad_out)
-        return tuple(g.to(m.dtype) for g, m in
-                     zip(grads, (gmap, fmap1, fmap2)))
     corr_onepass.check_inputs(gmap, fmap1, fmap2, coords, kk, jj)
     E = coords.shape[0]
     if (grad_out.shape != (E, d, d, P, P, 2) or
@@ -135,24 +174,68 @@ def corr_backward(gmap, fmap1, fmap2, coords, kk, jj, grad_out):
                          f'{grad_out.device}')
     coords, kk, jj = coords.contiguous(), kk.contiguous(), jj.contiguous()
     grad_out = grad_out.contiguous()
-    grads = [torch.zeros(m.shape, dtype=torch.float32, device=m.device)
-             for m in (gmap, fmap1, fmap2)]
-    if E:
-        if _lib is None:
-            build()
-        err = _lib.corr_backward_launch(
-            gmap.data_ptr(), fmap1.data_ptr(), fmap2.data_ptr(),
-            coords.data_ptr(), kk.data_ptr(), jj.data_ptr(),
-            grad_out.data_ptr(), *(g.data_ptr() for g in grads), E,
-            gmap.shape[0], fmap1.shape[0], fmap1.shape[1], fmap1.shape[2],
-            fmap2.shape[1], fmap2.shape[2],
-            int(gmap.dtype == torch.bfloat16), coords.device.index,
-            torch.cuda.current_stream(coords.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f'corr_backward kernel launch failed: CUDA '
-                               f'error {err}')
-        backward_launches += 1
-    return tuple(g.to(m.dtype) for g, m in zip(grads, (gmap, fmap1, fmap2)))
+    dev = coords.device
+    F, H1, W1 = fmap1.shape[:3]
+    H2, W2 = fmap2.shape[1:3]
+    dg = torch.zeros(gmap.shape, dtype=torch.float32, device=dev)
+    if E == 0:
+        return (dg.to(gmap.dtype), torch.zeros_like(fmap1),
+                torch.zeros_like(fmap2), None, None)
+    pl = plan(E, F, H1, W1, H2, W2, gmap.dtype, tiles)
+    # written whole by the tile kernel: no fill
+    d1, d2 = torch.empty_like(fmap1), torch.empty_like(fmap2)
+    scratch = torch.empty(pl['bytes'], dtype=torch.uint8, device=dev)
+    err = _lib.corr_backward_launch(
+        gmap.data_ptr(), fmap1.data_ptr(), fmap2.data_ptr(),
+        coords.data_ptr(), kk.data_ptr(), jj.data_ptr(), grad_out.data_ptr(),
+        dg.data_ptr(), d1.data_ptr(), d2.data_ptr(), scratch.data_ptr(), E,
+        gmap.shape[0], F, H1, W1, H2, W2, *_tiles(gmap.dtype, tiles),
+        int(gmap.dtype == torch.bfloat16), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'corr_backward kernel launch failed: CUDA error '
+                           f'{err}')
+    backward_launches += 1
+    return dg.to(gmap.dtype), d1, d2, scratch, pl
+
+
+def corr_backward(gmap, fmap1, fmap2, coords, kk, jj, grad_out):
+    """corr_backward_plain's function, on the card through the kernels.
+
+    Inputs as corr_onepass.corr_two_level takes them (gmap, fmap1, fmap2
+    channels-last, one dtype, bf16 or f32; coords f32; kk / jj int32 on
+    the card) and grad_out (E, 7, 7, 3, 3, 2) f32. CPU tensors take the
+    plain version; CUDA tensors launch the kernels or raise. Returns
+    (dgmap, dfmap1, dfmap2) in the maps' dtype, each summed in f32 and
+    rounded once: dfmap1 and dfmap2 in shared memory, in an order fixed by
+    the inputs (bit-identical from run to run); dgmap with atomics, in an
+    order that changes."""
+    if coords.device.type == 'cpu':
+        grads = corr_backward_plain(gmap, fmap1, fmap2, coords, kk, jj,
+                                    grad_out)
+        return tuple(g.to(m.dtype) for g, m in
+                     zip(grads, (gmap, fmap1, fmap2)))
+    return _launch(gmap, fmap1, fmap2, coords, kk, jj, grad_out)[:3]
+
+
+def backward_work(gmap, fmap1, fmap2, coords, kk, jj, grad_out, tiles=None):
+    """One corr_backward launch on CUDA inputs (counted), and what its
+    binning made: {'grads': the three gradients, 'tiles' (level 1, level
+    2), 'stats' ((tiles, 4) int64 per tile, level-2 tiles first, each
+    level's in (frame, tile row, tile column) order: box entries, pixel
+    entries, pixels with a dgmap atomic, batches), 'masks' ((2, E) int64
+    per level and edge: bits 0-8 the pixels summed with the edge's box,
+    9-17 those summed on their own), 'plan'}."""
+    dg, d1, d2, scratch, pl = _launch(gmap, fmap1, fmap2, coords, kk, jj,
+                                      grad_out, tiles)
+    E = coords.shape[0]
+    nt = sum(pl['tiles'])
+    stats = scratch[pl['stats_at']:pl['stats_at'] + 16 * nt].view(
+        torch.int32).reshape(nt, 4).long().cpu()
+    rec = scratch[pl['rec_at']:pl['rec_at'] + 2 * E * 128].view(
+        torch.int32).reshape(2, E, 32)
+    return dict(grads=(dg, d1, d2), tiles=pl['tiles'], stats=stats,
+                masks=rec[..., 2].long().cpu(), plan=pl)
 
 
 class _CorrTwoLevelTrain(torch.autograd.Function):

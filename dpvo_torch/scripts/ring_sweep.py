@@ -6,8 +6,8 @@ planes_fixedw) and K2 (ops/corr_fused.planes on bf16 maps); K2, K5, K7 and
 K8 run csrc/planes_ring.cuh:ring_body.
 
     python -m dpvo_torch.scripts.ring_sweep [--against DIR] [--sweep]
-                                            [--ablate] [--only KEY ...]
-                                            [--out FILE]
+                                            [--ablate] [--backward]
+                                            [--only KEY ...] [--out FILE]
 
 --against DIR compiles DIR/corr_probes.cu and DIR/corr_fused.cu (the csrc
 directory of another checkout, its headers beside them, e.g. the parent
@@ -28,6 +28,16 @@ the slab's tile kernel taken out (ABLATIONS: the global stores, the mma,
 the copies into shared memory, and their unions; PARTS has each edit) and
 times each against the checkout's build in turns, as the sweep does;
 their outputs are wrong by design and are not compared.
+--backward times the training correlation's backward (ops/corr_grad.py:
+corr_backward, csrc/corr_backward.cu) on chip_smoke.py's phase-13 inputs
+(E = 18,000, 15 frames of 120x160 / 30x40) with bf16 and f32 maps: its
+kernels' device us, the case with 80% of the output-gradient rows zero in
+turns with the full one, the tile shapes of BACKWARD_TILES in turns with
+the default (the gradients must agree within the bound), and with
+--against DIR, DIR's corr_backward.cu (and its own ops/corr_grad.py) in
+turns both ways round; with --ablate, its tile kernel with parts taken out
+(BACKWARD_PARTS) instead of the probes'; --backward alone skips the
+probes' comparisons.
 --only KEY (a key of corr_probes.launches, or 'corr_planes' for K2; may
 repeat) keeps the kernels, sweep settings and ablations of those wrappers
 only. Each prints ptxas's register and spill lines of the kernels
@@ -46,6 +56,7 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from dpvo_torch.ops import corr_fused, cuda_lib
@@ -438,11 +449,196 @@ def sweep(dev, rows, variants=SWEEP, compare=True):
     torch.cuda.empty_cache()
 
 
+# corr_backward's tiles ((rows, columns) at level 1, at level 2) timed
+# against corr_grad.TILES in turns
+BACKWARD_TILES = [((12, 8), (8, 8)), ((8, 12), (8, 8)), ((8, 8), (8, 8)),
+                  ((6, 16), (8, 8)), ((12, 8), (4, 8)), ((12, 8), (8, 16))]
+
+
+def _old_backward(csrc):
+    """DIR's corr_grad module bound to DIR's corr_backward.cu."""
+    so = compile_lib(csrc, 'corr_backward', 'against')
+    mod = module_of(csrc, 'corr_grad')
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    if hasattr(mod, 'plan'):    # the target-tile design's entry points
+        sig = {'corr_backward_launch': [P_] * 11 + [I_] * 13 + [P_],
+               'corr_backward_plan': [I_] * 11 + [ctypes.POINTER(
+                   ctypes.c_longlong)]}
+    else:                       # the atomics design (one block per edge)
+        sig = {'corr_backward_launch': [P_] * 10 + [I_] * 9 + [P_]}
+    for k, v in ptxas(so, ('corr_backward', 'bw_')).items():
+        print(f'  ptxas ({csrc}) {k}: {v}', flush=True)
+    return mod, load(so, sig)
+
+
+def backward(dev, csrc, rows):
+    """--backward (module docstring)."""
+    from chip_smoke import backward_case, backward_kernels_us
+    from dpvo_torch.ops import corr_grad
+    so = corr_grad.build()
+    for k, v in ptxas(Path(so), ('bw_',)).items():
+        print(f'  ptxas (this checkout) {k}: {v}', flush=True)
+    new = (corr_grad, corr_grad._lib)
+    old = _old_backward(csrc) if csrc else None
+    for dtype, seed in ((torch.bfloat16, 31), (torch.float32, 30)):
+        args, _ = backward_case(dev, dtype, seed)
+        go = args[-1]
+        E = go.shape[0]
+        keep = torch.from_numpy(
+            np.random.RandomState(seed).rand(E) < 0.2)
+        args80 = (*args[:-1], go * keep.to(dev)[:, None, None, None, None,
+                                                None])
+        tag = str(dtype).split('.')[-1]
+        us = backward_kernels_us(lambda: corr_grad.corr_backward(*args))
+        ms, _ = cm.device_ms(lambda: corr_grad.corr_backward(*args))
+        row = dict(name=f'corr_backward ({tag})', device_ms=ms, us=us,
+                   tiles=corr_grad.TILES[dtype])
+        print(f'  corr_backward ({tag} maps, tiles {corr_grad.TILES[dtype]}'
+              f', {corr_grad.occupancy(dtype)[2]} blocks per SM): device '
+              f'{ms!r} ms; kernels us {us}', flush=True)
+        z, f, r = cm.time_paired(lambda: corr_grad.corr_backward(*args80),
+                                 lambda: corr_grad.corr_backward(*args))
+        row.update(zero80_ms=z, full_ms=f, zero80_ratio=z / f)
+        print(f'  80% of the rows zero: {z!r} ms in turns with all rows '
+              f'{f!r} ms, ratio {z / f!r} (rounds {min(r)!r} .. '
+              f'{max(r)!r})', flush=True)
+        base = corr_grad.corr_backward(*args)
+        for t in BACKWARD_TILES:
+            try:
+                corr_grad.plan(E, 15, 120, 160, 30, 40, dtype, t)
+            except ValueError:
+                print(f'  tiles {t}: past a block\'s shared memory',
+                      flush=True)
+                continue
+            got = corr_grad._launch(*args, tiles=t)[:3]
+            err, scale, ok = cm.compare(got, base)
+            if not ok:
+                raise RuntimeError(f'corr_backward tiles {t}: off the '
+                                   f'default tiles\' gradients ({err})')
+            a, b, r = cm.time_paired(
+                lambda: corr_grad._launch(*args, tiles=t),
+                lambda: corr_grad.corr_backward(*args))
+            occ = corr_grad.occupancy(dtype, t)[2]
+            row.setdefault('tiles_sweep', []).append(dict(
+                tiles=t, ms=a, default_ms=b, ratio=a / b, blocks_per_sm=occ))
+            print(f'  tiles {t} ({occ} blocks per SM): {a!r} ms in turns '
+                  f'with the default {b!r} ms, ratio {a / b!r} (rounds '
+                  f'{min(r)!r} .. {max(r)!r})', flush=True)
+        if old is not None:
+            got = on(*old, lambda m: m.corr_backward(*args))()
+            err, scale, ok = cm.compare(got, base)
+            if not ok:
+                raise RuntimeError(f'corr_backward vs {csrc}: off the bound '
+                                   f'({err} at {scale})')
+            p = paired_both(new, old, lambda m: m.corr_backward(*args))
+            p80 = paired_both(new, old, lambda m: m.corr_backward(*args80))
+            new[0]._lib = new[1]
+            row.update(against=p, against80=p80)
+            for label, q in (('all rows', p), ('80% rows zero', p80)):
+                print(f'  corr_backward ({tag}, {label}): this checkout '
+                      f'{q["new_ms"]!r} ms, {csrc} {q["old_ms"]!r} ms, ratio '
+                      f'{q["ratio"]!r} (rounds {min(q["ratios"])!r} .. '
+                      f'{max(q["ratios"])!r}); max|diff| {err!r}',
+                      flush=True)
+        rows.append(row)
+        del args, args80, base
+        torch.cuda.empty_cache()
+
+
+# corr_backward's tile kernel with parts taken out (--backward --ablate),
+# each a list of (file, text, replacement) as PARTS holds them: 'sum' the
+# per-entry sums (mma or CUDA cores), 'build' the rows of tap gradients
+# (only with 'sum': the sums would read stale rows), 'atomics' the dgmap
+# atomics, 'entries' every entry (the rounds still scan), 'scan' the
+# frame lists (a tile stages, zeroes and writes only); their outputs are
+# wrong by design and are not compared
+BACKWARD_PARTS = {
+    'sum': [('corr_backward.cu',
+             '      if constexpr (kMma)\n'
+             '        accumulate_mma(i % kSlots, i & 1);\n'
+             '      else\n'
+             '        accumulate_f32(i % kSlots, i & 1);',
+             '      (void)0;')],
+    'build': [('corr_backward.cu',
+               '    for (int it = threadIdx.x; it < nrow * kP2; it += '
+               'kThreads) {',
+               '    for (int it = threadIdx.x; it < 0; it += kThreads) {')],
+    'atomics': [('corr_backward.cu',
+                 '      if ((h == 0 || g4 == 0) && ((gq.y >> row) & 1))',
+                 '      if ((h == 0 || g4 == 0) && ((gq.y >> row) & 1) &&'
+                 ' gq.z < 0)'),
+                ('corr_backward.cu',
+                 '        if ((prev_pm >> p) & 1) atomicAdd(',
+                 '        if (((prev_pm >> p) & 1) && prev_kk < 0) '
+                 'atomicAdd(')],
+    'entries': [('corr_backward.cu',
+                 'const int cut = misc[8], nb = min(total, misc[9]);',
+                 'const int cut = misc[8], nb = 0 * min(total, misc[9]);')],
+    'scan': [('corr_backward.cu',
+              '  const int first = a.fstart[f], nedges = a.fcnt[f];',
+              '  const int first = a.fstart[f], nedges = 0 * a.fcnt[f];')],
+}
+BACKWARD_ABLATIONS = [('sum',), ('sum', 'build'), ('atomics',),
+                      ('entries',), ('scan',)]
+
+
+def backward_ablate(dev, rows):
+    """--backward --ablate (BACKWARD_PARTS): the tile kernel's device us
+    with parts taken out against this checkout's, on phase 13's inputs
+    with bf16 maps, all rows and 80% of them zero."""
+    import numpy as np
+    from chip_smoke import backward_case, backward_kernels_us
+    from dpvo_torch.ops import corr_grad
+    corr_grad.build()
+    base = corr_grad._lib
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    sig = {'corr_backward_launch': [P_] * 11 + [I_] * 13 + [P_],
+           'corr_backward_plan': [I_] * 11 + [ctypes.POINTER(
+               ctypes.c_longlong)]}
+
+    def variant(parts):
+        tag = 'bw_' + '_'.join(parts)
+        out = BUILD / f'src_{tag}'
+        if out.exists():
+            shutil.rmtree(out)
+        shutil.copytree(cuda_lib.CSRC, out)
+        for file, old, new in (e for p in parts for e in BACKWARD_PARTS[p]):
+            path = out / file
+            src = path.read_text()
+            if src.count(old) != 1:
+                raise RuntimeError(f'{parts}: text to edit not found once in '
+                                   f'{file}: {old!r}')
+            path.write_text(src.replace(old, new))
+        return compile_lib(out, 'corr_backward', tag)
+    with ThreadPoolExecutor(len(BACKWARD_ABLATIONS)) as ex:
+        sos = list(ex.map(variant, BACKWARD_ABLATIONS))
+    args, _ = backward_case(dev, torch.bfloat16, 31)
+    E = args[3].shape[0]
+    keep = torch.from_numpy(np.random.RandomState(31).rand(E) < 0.2)
+    args80 = (*args[:-1], args[-1] * keep.to(dev)[:, None, None, None, None,
+                                                  None])
+    for label, aa in (('all rows', args), ('80% rows zero', args80)):
+        def tiles_us(lib):
+            corr_grad._lib = lib
+            return backward_kernels_us(
+                lambda: corr_grad.corr_backward(*aa))['bw_tiles']
+        ref = tiles_us(base)
+        print(f'  corr_backward (bf16, {label}): bw_tiles {ref!r} us',
+              flush=True)
+        for parts, so in zip(BACKWARD_ABLATIONS, sos):
+            us = tiles_us(load(so, sig))
+            rows.append(dict(rows=label, ablate=parts, us=us, base_us=ref))
+            print(f'  without {" + ".join(parts)}: {us!r} us ({ref - us!r} '
+                  f'us less)', flush=True)
+        corr_grad._lib = base
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--against', type=Path)
     ap.add_argument('--sweep', action='store_true')
     ap.add_argument('--ablate', action='store_true')
+    ap.add_argument('--backward', action='store_true')
     ap.add_argument('--only', action='append')
     ap.add_argument('--out', type=Path)
     a = ap.parse_args()
@@ -451,17 +647,25 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f'ring_sweep on {smi}', flush=True)
-    rows = {'card': smi, 'against': [], 'sweep': [], 'ablate': []}
-    cp.build()
-    corr_fused.build()
+    rows = {'card': smi, 'against': [], 'sweep': [], 'ablate': [],
+            'backward': []}
     def kept(variants):
         return [v for v in variants
                 if not a.only or set(changed(v)) & set(a.only)]
-    if a.against:
+    if a.backward:
+        backward(dev, a.against, rows['backward'])
+        if a.ablate:
+            backward_ablate(dev, rows['ablate'])
+    probes = not a.backward or a.sweep or (a.ablate and not a.backward) \
+        or a.only
+    if probes:
+        cp.build()
+        corr_fused.build()
+    if a.against and probes:
         against(dev, a.against, rows['against'], a.only)
     if a.sweep:
         sweep(dev, rows['sweep'], kept(SWEEP))
-    if a.ablate:
+    if a.ablate and probes:
         sweep(dev, rows['ablate'], kept(ABLATIONS), compare=False)
     if a.out:
         a.out.parent.mkdir(parents=True, exist_ok=True)

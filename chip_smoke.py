@@ -135,6 +135,34 @@ Phases (any failure raises, so the exit code is non-zero):
      loop between frames 30 and 5) and apply_pgo_result; poses 1e-2.
      Each run prints its own K1 launches (the counts set to 0 just before
      it); the kernels line keeps phase 4's, the main path's own count.
+ 15. the entry points on the card, with the card's name and power limit:
+     40 PNG frames of phase 4's texture and a calib file written to a
+     temporary directory, which is the working directory of the runs;
+     (a) dpvo_torch.demo.main (its spawn reader process) on DeviceVO at
+     640x480, default.yaml, the micro VONet, bf16: first with the motion
+     probe as it is (whether it left bootstrap is printed; if not, the
+     runs below force the probe on the runtime demo.run builds, and say
+     so), then with --timeit and every writer (TUM file 40 x 8, ply,
+     html, COLMAP, and --plot where matplotlib imports): K1 on every
+     update iteration, per-frame wall beside phase 4's, the whole run's
+     wall, then device busy per frame of a profiled run; (b) the same
+     with --viz on HybridVO and the headless viewer (jpg frames and
+     cloud.ply, 3D renders where matplotlib imports), K1 on every update
+     iteration, wall per frame beside (a)'s and the viewer pushes' ms;
+     DeviceVO built directly with viz=True, its pushes' ms; (e)
+     evaluate_synthetic.main, one trial over scenes 900-904, trained and
+     random weights: AVG ATE, trained below random; (c) in turns, two
+     rounds (ABCD DCBA), each run between two host-pace probes (a fixed
+     Python loop's ms, us per tiny launch, objects tracked by gc; also
+     printed before phase 4): phase
+     4's main path, (a)'s demo.main with --timeit, MultiStreamVO with 1
+     and with 2 streams on cuda:0, 40 lockstep frames, each stream its own
+     crop (K1 launches = streams x the update iterations, every stream
+     out of bootstrap, poses finite and moved, wall per lockstep step and
+     per stream-frame, busy and idle of 10 traced steps); (d)
+     MultiStreamVO at 64x96 on CUDA against the CPU, the same draws: f32
+     within 1e-3, bf16 within 1e-2, K1 launched. Each run prints its own
+     K1 launches.
 The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
@@ -450,6 +478,31 @@ def device_time(trace_path):
     if hi is not None:
         busy += hi - lo
     return busy / 1e3, by_name, len(events)
+
+
+def host_pace(dev, n=2000):
+    """The host's pace, to tell a slower host from a slower path: ms of a
+    fixed pure-Python loop, us per launch of n one-element kernels queued
+    back to back on dev (median of 3 each), and the objects the Python
+    garbage collector tracks (the process's heap)."""
+    import gc
+    import torch
+    py, launch = [], []
+    x = torch.zeros(1, device=dev)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        acc = 0
+        for i in range(200_000):
+            acc += i * i
+        py.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+        launch.append(1e6 * (time.perf_counter() - t0) / n)
+    return float(np.median(py)), float(np.median(launch)), \
+        len(gc.get_objects())
 
 
 def reset_launches():
@@ -1600,6 +1653,437 @@ def classic_on_card(dev, smi):
     print(f'  phase 14: {time.perf_counter() - t_phase:.1f} s', flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 15: the entry points (demo, viewer, MultiStreamVO, evaluate_*)
+# --------------------------------------------------------------------------
+
+def stream_frames(n, H, W, B, seed, offset=32):
+    """(n, B, H, W, 3): synthetic_frames' moving crop, stream b starting
+    offset * b px further right in one texture."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.RandomState(seed)
+    tex = gaussian_filter(rng.rand(H + 2 * n + 8, W + 3 * n + 8 + offset * B,
+                                   3), (2.0, 2.0, 0))
+    tex = ((tex - tex.min()) / np.ptp(tex) * 255.0).astype(np.uint8)
+    return np.stack([np.stack([tex[2 * t:2 * t + H, 3 * t + offset * b:
+                                   3 * t + offset * b + W] for b in range(B)])
+                     for t in range(n)])
+
+
+def left_bootstrap(slam):
+    from dpvo_torch.runtime import DeviceVO
+    return bool(slam.st.is_init if isinstance(slam, DeviceVO)
+                else slam.is_initialized)
+
+
+def force_probe(slam):
+    """Skip the learned motion probe (the micro weights never pass it)."""
+    from dpvo_torch.runtime import HybridVO
+    if isinstance(slam, HybridVO):
+        slam.motion_probe = lambda: 100.0
+    else:
+        slam.force_accept = True
+
+
+def timed_pushes(slam):
+    """Wrap the runtime's viewer push: host ms of each call, the device
+    synchronized around it (DeviceVO's read-back, HybridVO's host
+    snapshot)."""
+    import torch
+    ms, inner = [], slam._push_viewer_state
+
+    def push():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    slam._push_viewer_state = push
+    return ms
+
+
+def demo_main(argv, force, profile=False):
+    """dpvo_torch.demo.main(argv) in this process (its reader is a spawn
+    process), the runtime captured and, with force, its motion probe
+    forced; stdout kept apart. Returns (slam, launches, wall s, per-frame
+    Timer ms, viewer push ms, device busy ms or None)."""
+    import contextlib
+    import io
+    import torch
+    from dpvo_torch import demo, utils
+    real, built, pushes = demo.DPVO, [], []
+
+    def make(*args, **kwargs):
+        slam = real(*args, **kwargs)
+        if force:
+            force_probe(slam)
+        if slam.viewer is not None:
+            pushes.append(timed_pushes(slam))
+        built.append(slam)
+        return slam
+
+    demo.DPVO = make
+    n_times = len(utils.all_times)
+    busy = None
+    out = io.StringIO()
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            if profile:
+                from torch.profiler import ProfilerActivity
+                from torch.profiler import profile as prof_ctx
+                with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+                    demo.main(argv)
+                    torch.cuda.synchronize()
+            else:
+                demo.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        demo.DPVO = real
+    if profile:
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(f'{tmp}/trace.json')
+            busy = device_time(f'{tmp}/trace.json')[0]
+    check(len(built) == 1, f'demo built {len(built)} runtimes')
+    return (built[0], launches, wall, utils.all_times[n_times:],
+            pushes[0] if pushes else [], busy)
+
+
+def write_sequence(root, frames, intr):
+    """PNG frames (RGB arrays written as the BGR files a camera reader
+    would give back) and a calib file; returns (imagedir, calib path)."""
+    import cv2
+    seq = os.path.join(root, 'seq')
+    os.makedirs(seq)
+    for t, img in enumerate(frames):
+        check(cv2.imwrite(os.path.join(seq, f'{t:06d}.png'), img),
+              f'cv2.imwrite frame {t}')
+    calib = os.path.join(root, 'calib.txt')
+    with open(calib, 'w') as f:
+        f.write(' '.join(str(float(x)) for x in intr))
+    return seq, calib
+
+
+def entry_points_on_card(dev, smi, dv_stats, ho_stats, H=480, W=640, T=40,
+                         opts=()):
+    """Phase 15: the demo (pure VO, then --viz on HybridVO with the
+    headless viewer), MultiStreamVO at full width and CUDA against the
+    CPU, evaluate_synthetic on the card. H, W, T and opts (config keys
+    and values over default.yaml) shrink it for a rehearsal on the CPU."""
+    import torch
+    from dpvo_torch.runtime import DeviceVO, HybridVO
+    t_phase = time.perf_counter()
+    print(f'  {smi}', flush=True)
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    print(f'  import matplotlib on this host: '
+          f'{"works" if has_mpl else "fails"} (--plot and the viewer\'s 3D '
+          f'render {"run" if has_mpl else "are skipped"})', flush=True)
+    expected = 12 + (T - 8) + 12           # bootstrap + 1/frame + refine
+    old_cwd = os.getcwd()
+    display = os.environ.pop('DISPLAY', None)
+    with tempfile.TemporaryDirectory() as tmp:
+        seq, calib = write_sequence(tmp, synthetic_frames(T, H, W, seed=0),
+                                    (460.0, 460.0, W / 2, H / 2))
+        os.chdir(tmp)
+        try:
+            base = ['--imagedir', seq, '--calib', calib, '--network', WEIGHTS,
+                    '--stride', '1', '--config', CONFIG, '--device',
+                    str(dev)] + (['--opts', *opts] if opts else [])
+            plot = ['--plot'] if has_mpl else []
+
+            # (a) pure VO
+            slam, *_ = demo_main(base + ['--name', 'probe'], force=False)
+            check(isinstance(slam, DeviceVO), f'(a) ran {type(slam)}')
+            probe_ok = left_bootstrap(slam)
+            print(f'  (a) demo.main, micro weights, probe not forced: '
+                  f'{type(slam).__name__}, keyframes n = {slam.n}, left '
+                  f'bootstrap: {probe_ok}', flush=True)
+            force = not probe_ok
+            if force:
+                print('  (a) the motion probe rejected the generated frames: '
+                      'the runs below force it (force_accept set on the '
+                      'runtime that demo.run builds)', flush=True)
+            slam, k, wall, ms, _, _ = demo_main(
+                base + ['--name', 'a', '--timeit', '--save_trajectory',
+                        '--save_ply', '--save_html', '--save_colmap'] + plot,
+                force)
+            check(isinstance(slam, DeviceVO) and left_bootstrap(slam),
+                  f'(a) {type(slam).__name__} did not leave bootstrap')
+            check(k['corr_onepass'] >= expected, f'(a) K1 launched '
+                  f'{k["corr_onepass"]} times, expected >= {expected}')
+            rows = [r.split() for r in open('saved_trajectories/a.txt')
+                    .read().splitlines() if r]
+            check(len(rows) == T and all(len(r) == 8 for r in rows),
+                  f'(a) TUM file: {len(rows)} rows')
+            for rel in ['a.ply', 'a.html', 'a/points3D.txt', 'a/images.txt',
+                        'a/cameras.txt'] + (['trajectory_plots/a.pdf']
+                                            if has_mpl else []):
+                check(os.path.getsize(rel) > 0, f'(a) {rel} is empty')
+            a_ms = float(np.median(ms[10:]))
+            print(f'  (a) {type(slam).__name__}, {T} frames + terminate(): '
+                  f'K1 launches {k["corr_onepass"]} (update iterations '
+                  f'{expected}); TUM file {len(rows)} x 8, ply, html, '
+                  f'COLMAP{", plot" if has_mpl else ""} written', flush=True)
+            print(f'  (a) wall per frame: median {a_ms!r} ms over frames '
+                  f'10..{T - 1} (demo --timeit, the device synchronized per '
+                  f'frame; phase 4 in this call {dv_stats["wall"]!r}); the '
+                  f'whole demo.main (reader spawn, weights, {T} frames, '
+                  f'terminate, writers) {1e3 * wall / T!r} ms per frame',
+                  flush=True)
+            slam, k, wall_p, _, _, busy = demo_main(
+                base + ['--name', 'a_prof'], force, profile=True)
+            print(f'  (a) device busy per frame over the whole run '
+                  f'(torch.profiler, {T} frames, bootstrap and terminate '
+                  f'included): '
+                  f'{"not measured" if not busy else repr(busy / T)} ms '
+                  f'(phase 4 steady state {dv_stats["busy"]!r})', flush=True)
+
+            # (b) --viz: HybridVO with the headless viewer
+            slam, k, wall, ms, push_ms, _ = demo_main(
+                base + ['--name', 'b', '--viz', '--timeit'] + plot, force)
+            check(isinstance(slam, HybridVO) and left_bootstrap(slam),
+                  f'(b) {type(slam).__name__}, left bootstrap '
+                  f'{left_bootstrap(slam)}')
+            check(k['corr_onepass'] >= expected, f'(b) K1 launched '
+                  f'{k["corr_onepass"]} times, expected >= {expected}')
+            check(not slam.viewer.live and
+                  not slam.viewer.thread.is_alive(), '(b) viewer state')
+            files = os.listdir('viewer_out')
+            jpgs = [f for f in files if f.endswith('.jpg')]
+            check(jpgs and os.path.getsize('viewer_out/cloud.ply') > 0,
+                  f'(b) viewer wrote {sorted(files)}')
+            if has_mpl:
+                check(any(f.startswith('traj3d') for f in files) and
+                      os.path.getsize('trajectory_plots/b.pdf') > 0,
+                      f'(b) 3D render / plot missing: {sorted(files)}')
+            b_ms = float(np.median(ms[10:]))
+            print(f'  (b) {type(slam).__name__} with viz, {T} frames + '
+                  f'terminate(): K1 launches {k["corr_onepass"]} (update '
+                  f'iterations {expected}); viewer_out: {len(jpgs)} jpg, '
+                  f'cloud.ply, {sum(f.startswith("traj3d") for f in files)} '
+                  f'3D renders, viewer.html: {"viewer.html" in files}',
+                  flush=True)
+            print(f'  (b) wall per frame: median {b_ms!r} ms over frames '
+                  f'10..{T - 1} (a: {a_ms!r}; phase 5 HybridVO onepass '
+                  f'GRADIENT_BIAS without viewer {ho_stats["wall"]!r}); '
+                  f'{len(push_ms)} viewer pushes (every 3rd keyframe count), '
+                  f'{float(np.median(push_ms)) if push_ms else 0.0!r} ms '
+                  f'each (median), {sum(push_ms)!r} ms in all', flush=True)
+            # DeviceVO's own viz branch (built directly: the DPVO
+            # constructor sends viz to HybridVO), same frames
+            from dpvo_torch.config import cfg as base_cfg
+            cfg = base_cfg.clone()
+            cfg.merge_from_file(CONFIG)
+            cfg.merge_from_list(list(opts))
+            dvo = DeviceVO(cfg, WEIGHTS, H, W, viz=True, seed=0, device=dev)
+            dvo.force_accept = True
+            push_ms = timed_pushes(dvo)
+            frames = synthetic_frames(T, H, W, seed=0)
+            intr = np.array([460.0, 460.0, W / 2, H / 2], np.float32)
+            walls = []
+            for t, img in enumerate(frames):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dvo(t, img, intr)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            dvo.terminate()
+            check(len(push_ms) == T // 10 + 1, f'DeviceVO viz pushes '
+                  f'{len(push_ms)}')
+            print(f'  (b) DeviceVO with viz (built directly): wall per frame '
+                  f'median {float(np.median(walls[10:]))!r} ms over frames '
+                  f'10..{T - 1}; {len(push_ms)} viewer pushes (every 10th '
+                  f'frame + terminate, one read-back each) '
+                  f'{float(np.median(push_ms))!r} ms each (median)',
+                  flush=True)
+        finally:
+            os.chdir(old_cwd)
+            if display is not None:
+                os.environ['DISPLAY'] = display
+
+        # (e) evaluate_synthetic, one trial, trained and random weights
+        os.chdir(tmp)
+        try:
+            from dpvo_torch import evaluate_synthetic
+            avg = {}
+            for net in (WEIGHTS, 'none'):
+                reset_launches()
+                t0 = time.perf_counter()
+                _, avg[net] = evaluate_synthetic.main(
+                    ['--network', net, '--trials', '1', '--config', CONFIG,
+                     '--device', str(dev)])
+                k1 = read_launches()['corr_onepass']
+                check(k1 > 0 and np.isfinite(avg[net]),
+                      f'(e) {net}: K1 {k1}, AVG {avg[net]}')
+                print(f'  (e) evaluate_synthetic --trials 1, '
+                      f'{"trained" if net == WEIGHTS else "random"} weights: '
+                      f'AVG ATE {avg[net]!r} over scenes 900-904 (K1 '
+                      f'launches {k1}; {time.perf_counter() - t0:.1f} s)',
+                      flush=True)
+            check(avg[WEIGHTS] < avg['none'], f'(e) trained AVG '
+                  f'{avg[WEIGHTS]} >= random {avg["none"]}')
+            entry_turns(dev, base, force, H, W, T, opts)
+        finally:
+            os.chdir(old_cwd)
+
+    multistream_cpu_vs_cuda(dev)
+    print(f'  phase 15: {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
+def entry_turns(dev, base, force, H, W, T, opts, rounds=2):
+    """(c) in turns: phase 4's main path, (a)'s demo.main (--timeit) and
+    MultiStreamVO with 1 and 2 streams, rounds of ABCD then DCBA, each run
+    between two host_pace() probes. Prints each run's wall per frame (per
+    stream-frame for MultiStreamVO) beside the probes' mean pace, then
+    each one's median over the rounds and its ratio to phase 4's."""
+    import contextlib
+    import io
+    runs = ('phase 4', 'demo (a)', '1 stream', '2 streams')
+    walls = {r: [] for r in runs}
+    for i in range(rounds):
+        for run in (runs if i % 2 == 0 else runs[::-1]):
+            before = host_pace(dev)
+            if run == 'phase 4':
+                with contextlib.redirect_stdout(io.StringIO()):
+                    *_, st = main_path(dev, 'default.yaml', 'onepass')
+                wall = st['wall']
+            elif run == 'demo (a)':
+                ms = demo_main(base + ['--name', 'turn', '--timeit'],
+                               force)[3]
+                wall = float(np.median(ms[10:]))
+            else:
+                B = 1 if run == '1 stream' else 2
+                wall = multistream_on_card(dev, B, H, W, T, opts) / B
+            py_ms, launch_us, _ = (float(x) for x in
+                                   np.mean([before, host_pace(dev)], 0))
+            walls[run].append(wall)
+            print(f'  (c) in turns, round {i + 1}, {run}: wall per '
+                  f'{"stream-" if "stream" in run else ""}frame {wall!r} ms;'
+                  f' host pace (mean of the probes before and after): '
+                  f'Python loop {py_ms!r} ms, {launch_us!r} us per launch; '
+                  f'{before[2]} objects tracked by gc before', flush=True)
+    ref = float(np.median(walls['phase 4']))
+    print('  (c) in turns, median over the rounds (ms per frame or stream-'
+          'frame; / phase 4): ' + '; '.join(
+              f'{r} {float(np.median(w))!r} ({float(np.median(w)) / ref!r})'
+              for r, w in walls.items()), flush=True)
+
+
+def multistream_on_card(dev, B=2, H=480, W=640, T=40, opts=()):
+    """(c) MultiStreamVO at full width (default.yaml, 640x480, bf16), B
+    streams on one card, T lockstep frames, each stream its own crop; the
+    probe forced. Returns the median wall per lockstep step, ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dpvo_torch.config import cfg as base_cfg
+    from dpvo_torch.parallel.streams import MultiStreamVO
+    trace_from = T - 10
+    cfg = base_cfg.clone()
+    cfg.merge_from_file(CONFIG)
+    cfg.merge_from_list(list(opts))
+    frames = stream_frames(T, H, W, B, seed=0)
+    intr = np.array([460.0, 460.0, W / 2, H / 2], np.float32)
+    devices = ['cuda:0'] * B if torch.device(dev).type == 'cuda' else \
+        [dev] * B
+    mv = MultiStreamVO(cfg, WEIGHTS, H, W, intr, devices=devices)
+    mv.force_accept = True
+    check(len({id(n) for n in mv.networks}) == 1, 'one network per device')
+    reset_launches()
+    walls = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for t in range(T):
+            if t == trace_from:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_trace = time.perf_counter()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mv(np.full(B, float(t)), frames[t])
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        wall_trace = time.perf_counter() - t_trace
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(f'{tmp}/trace.json')
+        busy = device_time(f'{tmp}/trace.json')[0]
+    k1 = read_launches()['corr_onepass']
+    iters = 12 + (T - 8)                # bootstrap + 1/frame, no terminate
+    check(k1 == B * iters, f'(c) K1 launched {k1} times, expected '
+          f'{B} x {iters}')
+    for b, st in enumerate(mv.states):
+        poses = st.poses[:st.n].cpu().numpy()
+        check(st.is_init and st.n >= 8, f'(c) stream {b}: n = {st.n}')
+        check(np.isfinite(poses).all() and
+              np.abs(poses[-1, :3]).max() > 1e-3,
+              f'(c) stream {b}: poses {poses[-1]}')
+    step = float(np.median(walls[10:trace_from]))
+    nt = T - trace_from
+    busy_ms = busy / nt if busy > 0 else None
+    print(f'  (c) MultiStreamVO, {B} streams on {[str(d) for d in mv.devices]}'
+          f', {T} lockstep frames at {W}x{H} '
+          f'{"bf16" if cfg.MIXED_PRECISION else "f32"}: K1 launches {k1} = {B} x '
+          f'{iters} update iterations; keyframes {[st.n for st in mv.states]}'
+          f'; wall per lockstep step median {step!r} ms over steps '
+          f'10..{trace_from - 1} ({step / B!r} ms per stream-frame)',
+          flush=True)
+    print(f'  (c) device busy per step (profiler, steps {trace_from}..'
+          f'{T - 1}): '
+          f'{"not measured" if busy_ms is None else repr(busy_ms)} ms; idle '
+          f'share of the unprofiled wall '
+          f'{"not measured" if busy_ms is None else repr(1 - busy_ms / step)}'
+          f'; traced wall per step {1e3 * wall_trace / nt!r} ms', flush=True)
+    return step
+
+
+def multistream_cpu_vs_cuda(dev, B=2, T=16, H=64, W=96):
+    """(d) MultiStreamVO on CUDA against the CPU, the same draws: f32
+    within 1e-3 and bf16 within 1e-2 per pose component (phase 7's
+    bounds); K1 launched in the CUDA run."""
+    from dpvo_torch.config import cfg as base_cfg
+    from dpvo_torch.parallel.streams import MultiStreamVO
+    frames = stream_frames(T, H, W, B, seed=1, offset=8)
+    intr = np.array([W * 0.625, W * 0.625, W / 2, H / 2], np.float32)
+    for mixed in (False, True):
+        cfg = base_cfg.clone()
+        cfg.merge_from_file(CONFIG)
+        cfg.PATCHES_PER_FRAME = 8
+        cfg.BUFFER_SIZE = 64
+        cfg.MIXED_PRECISION = mixed
+        out = {}
+        for d in (dev, 'cpu'):
+            mv = MultiStreamVO(cfg, WEIGHTS, H, W, intr, devices=[d] * B)
+            mv.force_accept = True
+            reset_launches()
+            for t in range(T):
+                mv(np.full(B, float(t)), frames[t])
+            if d == dev:
+                k1 = read_launches()['corr_onepass']
+            out[d] = [(st.n, st.poses[:st.n].cpu().numpy())
+                      for st in mv.states]
+        tol = 1e-2 if mixed else 1e-3
+        prec = 'bf16' if mixed else 'f32'
+        check([n for n, _ in out[dev]] == [n for n, _ in out['cpu']],
+              f'(d) {prec} keyframes {out}')
+        err = max(float(np.abs(a - b).max())
+                  for (_, a), (_, b) in zip(out[dev], out['cpu']))
+        check(err <= tol and k1 > 0, f'(d) {prec}: CUDA vs CPU poses '
+              f'{err}, K1 launches {k1}')
+        print(f'  (d) MultiStreamVO {B} streams {H}x{W} {prec}, {T} frames: '
+              f'max |pose CUDA - pose CPU| = {err!r} (bound {tol!r}; '
+              f'keyframes {[n for n, _ in out[dev]]}; CUDA K1 launches {k1})',
+              flush=True)
+
+
+
 def check_items(where, items, E, cap, max_pos):
     """A target-tile chain's work items as it made them (corr_probes.
     pair_work, slab_work): each of 1 .. cap edges, together every edge
@@ -1703,14 +2187,14 @@ def main():
     dev = torch.device('cuda')
     name = torch.cuda.get_device_name(0)
 
-    print('[1/14] environment', flush=True)
+    print('[1/15] environment', flush=True)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f'  torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.device_count()} device(s): {name}')
 
-    print('[2/14] build', flush=True)
+    print('[2/15] build', flush=True)
     from concurrent.futures import ThreadPoolExecutor
     from dpvo_torch.ops import corr_fused, corr_grad, corr_onepass, \
         corr_probes
@@ -1786,7 +2270,7 @@ def main():
               f'SM; ring of {sh["stages"]} stages x {sh["rows"]} rows, '
               f'{sh["warps"]} consumer warps')
 
-    print('[3/14] kernels vs plain', flush=True)
+    print('[3/15] kernels vs plain', flush=True)
     err, k_ms, p_ms, b1, staged = kernel_vs_plain(
         dev, E=49152, F=36, H1=120, W1=160, Ng=36 * 96, nv=40013, seed=0,
         timed=True)
@@ -1801,12 +2285,15 @@ def main():
           f'{streamed / 1e9!r} GB ({streamed / k2[1] / 1e9!r} TB/s)',
           flush=True)
 
-    print('[4/14] DeviceVO main path', flush=True)
+    print('[4/15] DeviceVO main path', flush=True)
+    py_ms, launch_us, objs = host_pace(dev)
+    print(f'  host pace: Python loop {py_ms!r} ms, {launch_us!r} us per '
+          f'launch, {objs} objects tracked by gc', flush=True)
     dv, dv_iters, dv_stats = main_path(dev, 'default.yaml', 'onepass')
     check(dv['corr_onepass'] >= dv_iters, f'K1 launched '
           f'{dv["corr_onepass"]} times, expected >= {dv_iters}')
 
-    print('[5/14] hybrid main path', flush=True)
+    print('[5/15] hybrid main path', flush=True)
     hy, hy_iters, hy_stats = main_path(dev, 'default.yaml + GRADIENT_BIAS',
                                        'fused_k',
                                        CENTROID_SEL_STRAT='GRADIENT_BIAS')
@@ -1829,7 +2316,7 @@ def main():
               f'{st["busy"]!r}, idle {st["idle"]!r}; correlation ms/frame: '
               f'{corr}', flush=True)
 
-    print('[6/14] DeviceVO with fused_k', flush=True)
+    print('[6/15] DeviceVO with fused_k', flush=True)
     dk, dk_iters, _ = main_path(dev, 'default.yaml', 'fused_k', n_frames=12,
                                 measure=False)
     check(dk['corr_planes'] >= dk_iters and
@@ -1837,31 +2324,34 @@ def main():
           f'K2 / K3 launched {dk}, expected >= {dk_iters} / '
           f'{2 * dk_iters}')
 
-    print('[7/14] CUDA vs CPU', flush=True)
+    print('[7/15] CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev)
 
-    print('[8/14] correlation probes', flush=True)
+    print('[8/15] correlation probes', flush=True)
     probe_entries = probes()
 
-    print('[9/14] DeviceVO on yuv420, per frame and chunked', flush=True)
+    print('[9/15] DeviceVO on yuv420, per frame and chunked', flush=True)
     ingest_and_chunks(dev, smi, dv_stats)
 
-    print('[10/14] HybridVO on yuv420, CUDA vs CPU', flush=True)
+    print('[10/15] HybridVO on yuv420, CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev, runs=(
         ('HybridVO', (256, 320), 'onepass', dict(GB, UPLOAD_FORMAT='yuv420'),
          ('corr_onepass',)),), precisions=(True,))
 
-    print('[11/14] accuracy on the card', flush=True)
+    print('[11/15] accuracy on the card', flush=True)
     accuracy_on_card(dev)
 
-    print('[12/14] DPV-SLAM (learned loop closure) on the card', flush=True)
+    print('[12/15] DPV-SLAM (learned loop closure) on the card', flush=True)
     dpv_slam_on_card(dev, smi)
 
-    print('[13/14] training on the card', flush=True)
+    print('[13/15] training on the card', flush=True)
     backward_entry = train_on_card(dev, smi)
 
-    print('[14/14] classic loop closure on the card', flush=True)
+    print('[14/15] classic loop closure on the card', flush=True)
     classic_on_card(dev, smi)
+
+    print('[15/15] entry points on the card', flush=True)
+    entry_points_on_card(dev, smi, dv_stats, ho_stats)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return dict(name=name, route='cuda', source=source,

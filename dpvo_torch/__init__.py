@@ -1,9 +1,10 @@
 """dpvo_torch — Deep Patch Visual Odometry on PyTorch and CUDA (Hopper).
 
-The port of dpvo_tpu's pure-VO runtime (DeviceVO) and of its hybrid runtime
-(HybridVO) with DPV-SLAM's learned and classic loop closures. dpvo_tpu (JAX) stays the
-reference the tests hold this package against; this package imports torch
-and never jax.
+The port of dpvo_tpu's pure-VO runtime (DeviceVO), of its hybrid runtime
+(HybridVO) with DPV-SLAM's learned and classic loop closures and the
+viewer, of multi-stream tracking, training, and of the demo and evaluation
+CLIs. dpvo_tpu (JAX) stays the reference the tests hold this package
+against; this package imports torch and never jax.
 
 Layer map (module names mirror dpvo_tpu/):
   config.py             CfgNode + defaults
@@ -25,9 +26,24 @@ Layer map (module names mirror dpvo_tpu/):
                         use)
   runtime/              DeviceVO, HybridVO and the DPVO constructor; I420
                         packing for the yuv420 upload (i420.py)
+  parallel/streams.py   MultiStreamVO: B DeviceVOs stepped in lockstep,
+                        one torch device per stream
+  viz/                  the viewer thread (viewer.py: jpg frames, ply, 3D
+                        renders) and the self-contained WebGL page
+                        (html_viewer.py)
+  train/                the unrolled VONet, the differentiable BA, the
+                        loss and the optimizer step
   accuracy.py           the accuracy gates' runs (learned and oracle ATE)
-  evaluation.py         Sim3-aligned ATE (numpy)
+  evaluation.py         Sim3-aligned ATE, TUM / EuRoC trajectory files
+  plot_utils.py         trajectory plot, ply and COLMAP writers
+  stream.py             image-directory and video readers (a reader
+                        process feeds the runtime through a queue)
+  utils.py              Timer (synchronizes a CUDA device)
   data_readers/         synthetic scenes with exact ground truth (numpy)
+  demo.py, evaluate_euroc.py, evaluate_tum.py, evaluate_kitti.py,
+  evaluate_icl_nuim.py, evaluate_synthetic.py
+                        the CLIs (python -m dpvo_torch.demo ...); each
+                        runs on cuda unless given --device cpu
 """
 
 __version__ = '0.1.0'

@@ -75,9 +75,10 @@ cfg = CfgNode(
     MOTION_MODEL='DAMPED_LINEAR',
     MOTION_DAMPING=0.5,
     MIXED_PRECISION=True,
-    # frame ingest: 'rgb' only in this package ('yuv420' is not ported yet)
+    # frame ingest: 'rgb' or 'yuv420' (I420 planes, half the bytes)
     UPLOAD_FORMAT='rgb',
-    # hybrid runtime: host mirrors in flight ('1' only in this package)
+    # hybrid runtime: host mirrors in flight; this package runs every
+    # value synchronously (runtime/dpvo.py)
     MIRROR_PIPELINE=1,
     LOOP_CLOSURE=False,
     BACKEND_THRESH=64.0,

@@ -1,10 +1,12 @@
-"""Trajectory evaluation: Umeyama alignment + ATE RMSE.
+"""Trajectory evaluation: Umeyama alignment + ATE RMSE, and trajectory
+files.
 
-Copy of the parts of dpvo_tpu/evaluation.py that the accuracy gates use
-(numpy only; copied so this package never imports the JAX package): the
-evo-equivalent metric of the reference's evaluation scripts
-(evaluate_tartan.py:60-67): associate by timestamp, align the estimate to
-ground truth with a (scaled) rigid transform, report translation RMSE.
+Copy of dpvo_tpu/evaluation.py (numpy only; copied so this package never
+imports the JAX package): the evo-equivalent metric of the reference's
+evaluation scripts (evaluate_tartan.py:60-67): associate by timestamp,
+align the estimate to ground truth with a (scaled) rigid transform, report
+translation RMSE; the TUM writer and the TUM / EuRoC readers the demo and
+the evaluation CLIs use.
 """
 from __future__ import annotations
 
@@ -73,6 +75,33 @@ def ate_rmse(traj_est, traj_gt, correct_scale=True, max_diff=0.08):
     R, t, c = umeyama_alignment(x, y, with_scale=correct_scale)
     err = (c * R @ x + t) - y
     return float(np.sqrt((err ** 2).sum(axis=0).mean()))
+
+
+def save_trajectory_tum_format(traj, path):
+    """TUM format: t x y z qx qy qz qw (evo-compatible)."""
+    with open(path, 'w') as f:
+        for i in range(len(traj.timestamps)):
+            p = traj.positions_xyz[i]
+            qw, qx, qy, qz = traj.orientations_quat_wxyz[i]
+            f.write(f'{traj.timestamps[i]} {p[0]} {p[1]} {p[2]} '
+                    f'{qx} {qy} {qz} {qw}\n')
+
+
+def read_tum_trajectory_file(path):
+    data = np.loadtxt(path, comments='#')
+    return PoseTrajectory3D(
+        positions_xyz=data[:, 1:4],
+        orientations_quat_wxyz=data[:, [7, 4, 5, 6]],
+        timestamps=data[:, 0])
+
+
+def read_euroc_csv_trajectory(path):
+    """EuRoC groundtruth csv (state_groundtruth_estimate0/data.csv)."""
+    data = np.loadtxt(path, delimiter=',', skiprows=1)
+    return PoseTrajectory3D(
+        positions_xyz=data[:, 1:4],
+        orientations_quat_wxyz=data[:, 4:8],
+        timestamps=data[:, 0] / 1e9)
 
 
 def poses_to_trajectory(poses, tstamps):

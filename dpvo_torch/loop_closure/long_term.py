@@ -40,7 +40,7 @@ from .retrieval import ImageCache, RetrievalDBOW
 MIN_NUM_INLIERS = 30
 
 
-def triangulate(poses3, xy, depth, intr, target, device='cpu'):
+def triangulate(poses3, xy, depth, intr, target, *, device):
     """The triplet's structure-only BA (reference long_term.py:120-138), 6
     steps: n patches at xy (n, 2) in the middle frame of poses3 (3, 7),
     seen at target (2n, 2) in frames 0 and 2 (the first n rows frame 0),

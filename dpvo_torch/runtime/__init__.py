@@ -8,8 +8,9 @@ Two implementations behind one constructor, as in dpvo_tpu:
     (LOOP_CLOSURE: proximity edges, the inactive edge store, gauge
     normalization and global BA) and its classic one (CLASSIC_LOOP_CLOSURE:
     BoW retrieval, structure-only triangulation, RANSAC-Umeyama and the
-    Sim3 pose-graph worker). The viewer is not ported yet and raises
-    NotImplementedError (ROADMAP.md queue 1, item C).
+    Sim3 pose-graph worker).
+Both take viz=True, which starts the viewer (viz/viewer.py); the DPVO
+constructor sends viz configs to HybridVO, as dpvo_tpu's does.
 """
 from .device_driver import DeviceVO
 from .dpvo import HybridVO

@@ -8,7 +8,9 @@ vo_frame runs there. The image bytes are the RGB frame or, with
 UPLOAD_FORMAT=yuv420, its I420 planes (half the bytes; packed on the host by
 i420.rgb_to_i420, turned back into RGB on the device). track_frames uploads
 a chunk of such rows in one copy. terminate() runs 12 refinement iterations
-and reads the trajectory back once.
+and reads the trajectory back once. With viz, each frame goes to the viewer
+(viz/viewer.py) and every 10th frame, and terminate(), push it a snapshot
+of the keyframes' poses and points, read back in one copy.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import os
 import numpy as np
 import torch
 
-from ..models.vonet import RES, load_vonet
+from ..models.vonet import RES, VONet, load_vonet
 from . import numpy_se3 as nse3
 from .centroid import select_coords
 from .device_vo import CNT_CAP, init_state, vo_frame_packed1, \
@@ -59,22 +61,42 @@ def upload_format(cfg, ht, wd):
     return fmt
 
 
+def _points(poses, centers, depth, intr, M):
+    """(m, 3) world points of m = len(depth) patch centers (m, 2) at
+    inverse depths `depth`, patch i in keyframe i // M of cam-from-world
+    `poses`; intr (4,) at the centers' scale."""
+    m = len(depth)
+    xn = (centers[:, 0] - intr[2]) / intr[0]
+    yn = (centers[:, 1] - intr[3]) / intr[1]
+    pts_c = np.stack([xn, yn, np.ones(m)], -1) / np.maximum(
+        depth[:, None], 1e-6)
+    c2w = nse3.inv(poses[np.arange(m) // M])
+    return nse3.quat_rotate(c2w[:, 3:7], pts_c) + c2w[:, :3]
+
+
 class DeviceVO:
     """Same public surface as the reference DPVO: construct, __call__,
     terminate; and dpvo_tpu's track_frames, point_cloud and colors."""
 
     def __init__(self, cfg, network, ht=480, wd=640, viz=False, seed=1234,
                  device='cuda'):
-        if viz:
-            raise NotImplementedError(
-                'the viewer is not ported yet: ROADMAP.md queue 1, item C')
         self.cfg = cfg
         self.ht, self.wd = ht, wd
         self.M = cfg.PATCHES_PER_FRAME
         self.device = torch.device(device)
         self.rng = np.random.RandomState(seed)
-        self.network = load_vonet(network, self.device,
-                                  bool(cfg.MIXED_PRECISION))
+        if isinstance(network, VONet):
+            # preloaded (MultiStreamVO shares one network per device)
+            want = torch.bfloat16 if cfg.MIXED_PRECISION else torch.float32
+            dev = next(network.parameters()).device
+            here = torch.empty(0, device=self.device).device   # cuda:i
+            if network.dtype != want or dev != here:
+                raise ValueError(f'network on {dev} in {network.dtype}; this '
+                                 f'runtime needs {here}, {want}')
+            self.network = network
+        else:
+            self.network = load_vonet(network, self.device,
+                                      bool(cfg.MIXED_PRECISION))
         self._static = dict(
             M=self.M,
             W=cfg.OPTIMIZATION_WINDOW,
@@ -99,6 +121,10 @@ class DeviceVO:
         self.st = None
         self.tlist = []
         self.h2d_bytes = 0       # bytes uploaded by __call__ / track_frames
+        self.viewer = None
+        if viz:
+            from ..viz.viewer import Viewer
+            self.viewer = Viewer()
 
     def _start(self, K, intrinsics):
         """Build the state on the first call; refuse K more frames when they
@@ -116,17 +142,27 @@ class DeviceVO:
                 f'The buffer size is too small. You can increase it using '
                 f'"--opts BUFFER_SIZE={self.cfg.BUFFER_SIZE * 2}"')
 
-    def _pack_buf(self, image, tstamp):
-        """One flat uint8 row for vo_frame(s)_packed1: [image bytes (rgb or
-        I420) | (M, 4) f32 aux bytes]."""
+    def _frame(self, image):
         image = np.ascontiguousarray(image, np.uint8)
         if image.shape != (self.ht, self.wd, 3):
             raise ValueError(f'expected a ({self.ht}, {self.wd}, 3) frame, '
                              f'got {image.shape}')
+        return image
+
+    def _draw(self, image):
+        """The frame's host randoms, in dpvo_tpu's order: (M, 2) patch
+        centroids on the 1/4 grid (select_coords), then (M,) depth
+        seeds."""
+        coords = select_coords(self.cfg, self.rng, image, self.M,
+                               self.ht // RES, self.wd // RES)
+        return coords, self.rng.rand(self.M)
+
+    def _pack_buf(self, image, tstamp, coords, seeds):
+        """One flat uint8 row for vo_frame(s)_packed1: [image bytes (rgb or
+        I420) | (M, 4) f32 aux bytes: coords, seed, tstamp]."""
         aux = np.empty((self.M, 4), np.float32)
-        aux[:, :2] = select_coords(self.cfg, self.rng, image, self.M,
-                                   self.ht // RES, self.wd // RES)
-        aux[:, 2] = self.rng.rand(self.M)
+        aux[:, :2] = coords
+        aux[:, 2] = seeds
         aux[:, 3] = tstamp
         pix = rgb_to_i420(image) if self._upload == 'yuv420' else image
         return np.concatenate([pix.reshape(-1), aux.view(np.uint8).ravel()])
@@ -145,10 +181,42 @@ class DeviceVO:
     def __call__(self, tstamp, image, intrinsics):
         """Track one (ht, wd, 3) uint8 RGB frame."""
         self._start(1, intrinsics)
-        buf = self._pack_buf(image, tstamp)
+        image = self._frame(image)
+        self._step(tstamp, image, *self._draw(image))
+
+    def step(self, tstamp, image, intrinsics, coords, seeds):
+        """Track one frame with its host randoms given: (M, 2) patch
+        centroids on the 1/4 grid and (M,) depth seeds (MultiStreamVO
+        draws them for all its streams in dpvo_tpu's order)."""
+        self._start(1, intrinsics)
+        self._step(tstamp, self._frame(image), coords, seeds)
+
+    def _step(self, tstamp, image, coords, seeds):
+        buf = self._pack_buf(image, tstamp, coords, seeds)
         self.tlist.append(tstamp)
         self.st = vo_frame_packed1(self.network, self.st,
                                    self._upload_rows(buf), **self._kw())
+        if self.viewer is not None:
+            self.viewer.update_image(image)
+            if len(self.tlist) % 10 == 0:
+                self._push_viewer_state()
+
+    def _push_viewer_state(self):
+        """Send the viewer the keyframes' world-from-camera poses, points
+        and colors (dpvo_tpu's raw f32 colors, BGR), read back in one
+        copy."""
+        st, n, M = self.st, self.st.n, self.M
+        if n < 2:
+            return
+        flat = torch.cat([st.poses[:n].reshape(-1), st.centers[:n].reshape(-1),
+                          st.depth[:n * M], st.colors[:n].reshape(-1),
+                          st.intr]).cpu().numpy()
+        poses, centers, depth, clr, intr = np.split(
+            flat, np.cumsum([7 * n, 2 * n * M, n * M, 3 * n * M]))
+        poses = poses.reshape(n, 7)
+        self.viewer.update_state(
+            nse3.inv(poses), _points(poses, centers.reshape(-1, 2), depth,
+                                     intr, M), clr.reshape(-1, 3))
 
     def track_frames(self, tstamps, images, intrinsics):
         """Track a chunk of K frames from one upload (dpvo_tpu's
@@ -157,8 +225,9 @@ class DeviceVO:
         reads; the chunk saves K - 1 uploads."""
         K = len(images)
         self._start(K, intrinsics)
-        bufs = np.stack([self._pack_buf(images[k], tstamps[k])
-                         for k in range(K)])
+        frames = [self._frame(img) for img in images]
+        bufs = np.stack([self._pack_buf(img, ts, *self._draw(img))
+                         for img, ts in zip(frames, tstamps)])
         self.tlist.extend(tstamps)
         self.st = vo_frames_packed1(self.network, self.st,
                                     self._upload_rows(bufs), **self._kw())
@@ -190,6 +259,9 @@ class DeviceVO:
             return pose
 
         poses = nse3.inv(np.stack([get_pose(t) for t in range(st.counter)]))
+        if self.viewer is not None:
+            self._push_viewer_state()
+            self.viewer.join()
         return poses, np.array(self.tlist, dtype=np.float64)
 
     @property
@@ -198,19 +270,11 @@ class DeviceVO:
 
     def point_cloud(self):
         """(n*M, 3) world points of the live keyframes' patch centers."""
-        st = self.st
-        n = st.n
-        m = n * self.M
-        centers = st.centers[:n].cpu().numpy().reshape(-1, 2)
-        depth = st.depth[:m].cpu().numpy()
-        poses = st.poses.cpu().numpy()
-        intr = st.intr.cpu().numpy()
-        xn = (centers[:, 0] - intr[2]) / intr[0]
-        yn = (centers[:, 1] - intr[3]) / intr[1]
-        pts_c = np.stack([xn, yn, np.ones(m)], -1) / np.maximum(
-            depth[:, None], 1e-6)
-        c2w = nse3.inv(poses[np.arange(m) // self.M])
-        return nse3.quat_rotate(c2w[:, 3:7], pts_c) + c2w[:, :3]
+        st, n = self.st, self.st.n
+        return _points(st.poses.cpu().numpy(),
+                       st.centers[:n].cpu().numpy().reshape(-1, 2),
+                       st.depth[:n * self.M].cpu().numpy(),
+                       st.intr.cpu().numpy(), self.M)
 
     def colors(self):
         """(n, M, 3) uint8 colors of the live keyframes' patch centers,

@@ -160,8 +160,25 @@ def test_gather_rows_and_probe_median_match_jax():
 
 @pytest.mark.parametrize('key, value, viz', [
     ('CENTROID_SEL_STRAT', 'GRADIENT_BIAS', True)])
-def test_unported_options_raise(key, value, viz):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+def test_unported_options_raise(key, value, viz, tmp_path, monkeypatch):
+    """No option of HybridVO is left unported: viz=True builds the headless
+    viewer (viz/viewer.py), joined at terminate(). A viewer that fails to
+    start raises; dpvo_tpu warns and runs on without one."""
+    from dpvo_torch.viz import viewer
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv('DISPLAY', raising=False)
+    vo = HybridVO(_cfg(torch_cfg, **{key: value}), NPZ, ht=H, wd=W, viz=viz,
+                  device='cpu')
+    assert isinstance(vo.viewer, viewer.Viewer) and not vo.viewer.live
+    vo(0, _frames(1)[0], INTR)
+    vo.terminate()
+    assert not vo.viewer.thread.is_alive()
+    assert (tmp_path / 'viewer_out' / 'frame_000000.jpg').exists()
+
+    def broken(*args, **kwargs):
+        raise PermissionError('viewer_out is not writable')
+    monkeypatch.setattr(viewer, 'Viewer', broken)
+    with pytest.raises(PermissionError, match='viewer_out'):
         HybridVO(_cfg(torch_cfg, **{key: value}), NPZ, ht=H, wd=W, viz=viz,
                  device='cpu')
 

@@ -169,14 +169,28 @@ def test_keyframe_removal_shifts_whole_frames():
     assert st.poses[:n, 0].tolist() == [0, 1, 3, 4, 5, 5]
 
 
-def test_device_vo_signature_and_viz():
-    """DeviceVO takes viz fifth, as dpvo_tpu's does; the viewer is not
-    ported, so viz=True raises, naming its ROADMAP item."""
+def test_device_vo_signature_and_viz(tmp_path, monkeypatch):
+    """DeviceVO takes viz fifth, as dpvo_tpu's does; viz=True builds the
+    headless viewer (viz/viewer.py), which terminate() joins. A viewer that
+    fails to start raises: dpvo_tpu warns and runs on without one."""
     import inspect
     from dpvo_torch.runtime import DeviceVO
+    from dpvo_torch.viz import viewer
     assert list(inspect.signature(DeviceVO).parameters) == [
         'cfg', 'network', 'ht', 'wd', 'viz', 'seed', 'device']
-    with pytest.raises(NotImplementedError, match='ROADMAP.md .* item C'):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv('DISPLAY', raising=False)
+    vo = DeviceVO(_cfg(torch_cfg), NPZ, H, W, True, device='cpu')
+    assert isinstance(vo.viewer, viewer.Viewer) and not vo.viewer.live
+    vo(0, _frames(1)[0], INTR)
+    vo.terminate()
+    assert not vo.viewer.thread.is_alive()
+    assert (tmp_path / 'viewer_out' / 'frame_000000.jpg').exists()
+
+    def broken(*args, **kwargs):
+        raise PermissionError('viewer_out is not writable')
+    monkeypatch.setattr(viewer, 'Viewer', broken)
+    with pytest.raises(PermissionError, match='viewer_out'):
         DeviceVO(_cfg(torch_cfg), NPZ, H, W, True, device='cpu')
 
 

@@ -285,7 +285,7 @@ def test_run_pgo_matches_jax():
 def test_structure_only_ba_matches_jax():
     (poses3, xy, depth, intr, target), true = acc.plane_triplet(n=200)
     n = len(xy)
-    got = triangulate(poses3, xy, depth, intr, target)
+    got = triangulate(poses3, xy, depth, intr, target, device='cpu')
 
     kk = np.tile(np.arange(n), 2)
     ii = np.ones(2 * n, np.int32)

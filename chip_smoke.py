@@ -114,27 +114,25 @@ Phases (any failure raises, so the exit code is non-zero):
      step; wall ms per step, device busy and idle share from a profiler
      trace of the last step, its top kernels, peak device memory.
  14. DPV-SLAM's classic loop closure (HybridVO with CLASSIC_LOOP_CLOSURE).
-     Its first line says whether the host has the cv2 module and
-     `pkg-config opencv4` (the retrieval library builds against OpenCV's
-     C++ headers and libraries; a pip cv2 wheel has neither). With both:
-     (a) default.yaml + CLASSIC_LOOP_CLOSURE at 640x480, the full-width
-     VONet, bf16, onepass, on 48 frames of dpvo_torch.accuracy's
-     out-and-back textured plane, KEYFRAME_THRESH -1 and classic_cfg's
-     retrieval keys: retrieval proposes a candidate, K1 on every update
-     iteration, finite poses; lc_count, wall / busy / idle per frame, per
-     close_loop the host ms of ORB + matching, the structure-only BA's
+     It needs the cv2 module (a host without it fails the phase); the
+     retrieval library (dpvo_torch/native/dpretrieval.cpp, the tf-idf BoW)
+     builds with plain g++, ORB and matching run on cv2. Its first line
+     gives cv2's version and the library. (a) default.yaml +
+     CLASSIC_LOOP_CLOSURE at 640x480, the full-width VONet, bf16, onepass,
+     on 48 frames of dpvo_torch.accuracy's out-and-back textured plane,
+     KEYFRAME_THRESH -1 and classic_cfg's retrieval keys: retrieval
+     proposes a candidate, K1 on every update iteration, finite poses;
+     lc_count, wall / busy / idle per frame, per close_loop the host ms of
+     the call (its stall) and of ORB + matching, the structure-only BA's
      device ms, RANSAC ms and the PGO worker's submission-to-result ms,
      peak device memory; (b) the oracle gate in f32 at 128x192 (lc_count
      >= 1, ATE < 0.05 x the path); (c) the same scene with the trained
      weights in bf16 and sync_pgo, CUDA against the CPU (poses 1e-2, the
      same loops and lc_count, K1 on every update iteration); (d) the
      structure-only BA on (b)'s first triplet, CUDA against the CPU
-     (depths 1e-4). Without them: (d) on a geometric triplet of (b)'s
-     scene, and (c)'s scene without classic LC on CUDA (K1) and on the
-     CPU, each followed by run_DPVO_PGO in a spawn pool (the ground-truth
-     loop between frames 30 and 5) and apply_pgo_result; poses 1e-2.
-     Each run prints its own K1 launches (the counts set to 0 just before
-     it); the kernels line keeps phase 4's, the main path's own count.
+     (depths 1e-4). Each run prints its own K1 launches (the counts set to
+     0 just before it); the kernels line keeps phase 4's, the main path's
+     own count.
  15. the entry points on the card, with the card's name and power limit:
      40 PNG frames of phase 4's texture and a calib file written to a
      temporary directory, which is the working directory of the runs;
@@ -163,6 +161,31 @@ Phases (any failure raises, so the exit code is non-zero):
      MultiStreamVO at 64x96 on CUDA against the CPU, the same draws: f32
      within 1e-3, bf16 within 1e-2, K1 launched. Each run prints its own
      K1 launches.
+ 16. the training and evaluation entry points on the card, with the card's
+     name and power limit, in a temporary working directory holding a
+     TartanAir layout (datasets/TartanAir: 2 scenes of 70 frames at
+     480x640 rendered by dpvo_torch/data_readers/synthetic.py with
+     TartanAir's camera, depth_left/*.npy, a NED pose_left.txt; 2
+     validation scenes of their first 40 frames, which the reader
+     reserves): (a) dpvo_torch.train.cli.main as a user runs it
+     (--dataset tartan, n_frames 15, M = 80, batch 1, bf16, 480x640 crop),
+     3 steps structure-only from the seeded weights, then 3 full steps
+     from a --ckpt the port wrote: finite losses, the pose loss's aux only
+     in the full run, K1 and corr_backward 18 times per step; wall ms per
+     step, device busy and idle share of the traced third full step, the
+     reader's host ms per item; (b) one batch of the same pipeline, the
+     step through parallel/mesh.py over NCCL in a world of one against a
+     plain step, beside two plain steps' spread, as the trainer runs
+     (CUDA's atomic scatter sums make steps differ) and under
+     torch.use_deterministic_algorithms, where the whole gradient must be
+     within 1e-4 relative L2; (c) evaluate_tartan.evaluate over the
+     2 validation scenes (default.yaml, artifacts/micro_vonet.npz, the
+     motion probe forced): the results dict, wall per frame, K1 on every
+     update iteration; (d) graft_entry.entry() run once: K1 launched.
+     train_eval_on_card(..., H, W, n_frames, M, crop) shrinks it for a CPU
+     rehearsal (the launch checks then fail by design).
+With --phases 14,16 (development) the script runs phases 1, 2 and those
+named, then stops without the result lines.
 The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
@@ -1382,19 +1405,6 @@ def train_on_card(dev, smi):
                 bound_by=bound[1], library_ms=None)
 
 
-def opencv_on_host():
-    """(cv2 importable, pkg-config knows opencv4): the classic backend needs
-    both, cv2 for ORB, matching and the JPEG cache, OpenCV's C++ headers
-    and libraries for the native retrieval library (a pip cv2 wheel has
-    neither)."""
-    import importlib.util
-    import shutil
-    has_cv2 = importlib.util.find_spec('cv2') is not None
-    has_pc = bool(shutil.which('pkg-config')) and subprocess.run(
-        ['pkg-config', '--exists', 'opencv4']).returncode == 0
-    return has_cv2, has_pc
-
-
 def classic_timers():
     """Wrap the classic backend's steps (class and module attributes of
     dpvo_torch.loop_closure.long_term) with timers; returns (calls, undo).
@@ -1524,86 +1534,22 @@ def classic_cpu_vs_cuda(dev):
     check(k1 >= iters, f'(c): K1 launched {k1} times, expected >= {iters}')
 
 
-def pgo_without_opencv(dev):
-    """The OpenCV-free part of the backend: (c)'s scene without classic
-    LC on CUDA (K1) and on the CPU; on each run's keyframe poses
-    run_DPVO_PGO in a spawn pool with the ground-truth loop Sim3 between
-    frames 30 and 5 (the same view: identity); apply_pgo_result into the
-    live state; the two devices' poses after it, and terminate()'s, within
-    1e-2."""
-    import multiprocessing as mp
-    import torch
-    from dpvo_torch import accuracy as acc
-    from dpvo_torch.loop_closure.pgo import apply_pgo_result
-    from dpvo_torch.loop_closure.pgo import run_DPVO_PGO
-    from dpvo_torch.runtime import numpy_se3 as nse3
-    i, j = 30, 5
-    gt = acc.classic_gt()
-    G = nse3.mul(gt[j], nse3.inv(gt[i]))
-    loop = np.concatenate([G, [1.0]]).astype(np.float32)[None]
-    ctx = mp.get_context('spawn')
-    res = []                      # per run, in the order dev, 'cpu'
-
-    def stop(slam):
-        slam._drain()
-        pred = nse3.inv(slam.poses_np[:slam.n])
-        ms = []
-        with ctx.Manager() as manager, ctx.Pool(1) as pool:
-            queue = manager.Queue()
-            for _ in range(2):        # a cold worker, then a warm one
-                t0 = time.perf_counter()
-                pool.apply_async(run_DPVO_PGO, (pred, loop, np.array([i]),
-                                                np.array([j]), queue)).get()
-                ms.append(1e3 * (time.perf_counter() - t0))
-                final = queue.get()
-        apply_pgo_result(slam, final)
-        res.append(dict(ms=ms,
-                        after=slam.st.poses[:slam.n].cpu().numpy().copy()))
-
-    out = {}
-    for d in (dev, 'cpu'):
-        reset_launches()
-        out[d] = acc.classic_run(d, network=WEIGHTS, oracle=False,
-                                 mixed=True, classic=False, stop=stop)
-        out[d]['launches'] = read_launches()
-    k1 = out[dev]['launches']['corr_onepass']
-    iters = 12 + (acc.CLASSIC_FRAMES - 8) + 12
-    err_after = float(np.abs(res[0]['after'] - res[1]['after']).max())
-    err = float(np.abs(out[dev]['poses'] - out['cpu']['poses']).max())
-    print(f'  without OpenCV: (c)\'s scene without classic LC, then '
-          f'run_DPVO_PGO in a spawn pool (loop {i} -> {j}, ground truth) and '
-          f'apply_pgo_result: PGO (cold worker, warm worker) '
-          f'{res[0]["ms"]!r} / {res[1]["ms"]!r} ms per pool call (CUDA run '
-          f'/ CPU run, host clock); max |pose CUDA - pose CPU| after it {err_after!r}, '
-          f'after terminate {err!r} (bound 1e-2); K1 launches {k1} of '
-          f'{iters} update iterations', flush=True)
-    check(np.isfinite(res[0]['after']).all() and err_after <= 1e-2 and
-          err <= 1e-2, f'PGO + apply CUDA vs CPU: {err_after}, {err}')
-    check(k1 >= iters, f'K1 launched {k1} times, expected >= {iters}')
-
-
 def classic_on_card(dev, smi):
     """Phase 14 (see the module docstring)."""
+    import importlib.util
     import torch
     from dpvo_torch import accuracy as acc
+    from dpvo_torch.loop_closure.retrieval import retrieval_native
     t_phase = time.perf_counter()
-    has_cv2, has_pc = opencv_on_host()
-    runs = has_cv2 and has_pc
-    print(f'  OpenCV on this host: cv2 module '
-          f'{"found" if has_cv2 else "missing"}, pkg-config opencv4 '
-          f'{"found" if has_pc else "missing"}: ' +
-          ('(a)-(d) run' if runs else
-           'the classic backend cannot run here (its native retrieval '
-           'library builds against OpenCV\'s C++ headers and libraries); '
-           '(d) and the OpenCV-free part of the backend run'), flush=True)
-    if not runs:
-        args, true = acc.plane_triplet()
-        structure_only_cpu_vs_cuda(dev, args, 'a geometric triplet of (b)\'s '
-                                   'scene (frame 9, no ORB)')
-        pgo_without_opencv(dev)
-        print(f'  phase 14: {time.perf_counter() - t_phase:.1f} s',
-              flush=True)
-        return
+    check(importlib.util.find_spec('cv2') is not None,
+          'classic loop closure needs the cv2 module (ORB, matching, the '
+          'JPEG cache), which this host lacks')
+    import cv2
+    t0 = time.perf_counter()
+    so = retrieval_native.library_path()
+    print(f'  cv2 {cv2.__version__}; retrieval library {so.name} (g++ '
+          f'{" ".join(retrieval_native.FLAGS)}, no OpenCV) ready in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
 
     # (a) full width
     gt, frames, intr = acc.classic_scene(n=48, H=480, W=640)
@@ -1626,9 +1572,11 @@ def classic_on_card(dev, smi):
           f'launches {launches["corr_onepass"]} of {iters} update '
           f'iterations', flush=True)
     print_close_calls(calls)
+    closes = [c['ms'] for c in calls['close']]
     print(f'  {smi}: classic LC wall {st["wall"]!r} ms/frame, device busy '
-          f'{st["busy"]!r} ms/frame, idle share {st["idle"]!r}; peak device '
-          f'memory (max_memory_allocated) {peak / 2 ** 30!r} GiB', flush=True)
+          f'{st["busy"]!r} ms/frame, idle share {st["idle"]!r}; close_loop '
+          f'stall (host ms per call) {closes!r}; peak device memory '
+          f'(max_memory_allocated) {peak / 2 ** 30!r} GiB', flush=True)
     check(len(calls['close']) >= 1, '(a): retrieval proposed no candidate')
     check(launches['corr_onepass'] >= iters, f'(a): K1 launched '
           f'{launches["corr_onepass"]} times, expected >= {iters}')
@@ -2084,6 +2032,375 @@ def multistream_cpu_vs_cuda(dev, B=2, T=16, H=64, W=96):
 
 
 
+# --------------------------------------------------------------------------
+# phase 16: the training and evaluation entry points (train/cli.py, parallel/
+# mesh.py, evaluate_tartan.py, graft_entry.py)
+# --------------------------------------------------------------------------
+
+TARTAN_INTR = (320.0, 320.0, 320.0, 240.0)    # TartanAir's fixed camera
+
+
+def write_tartan(root, scenes, n, H, W, seed):
+    """TartanAir's layout under root: per scene image_left/*.png,
+    depth_left/*.npy (metres) and a NED pose_left.txt, rendered by the
+    port's data_readers/synthetic.py (a textured plane seen by TartanAir's
+    camera along a forward trajectory). Returns the scene directories."""
+    import cv2
+    from dpvo_torch.data_readers import synthetic as syn
+    from dpvo_torch.data_readers.tartan import TartanAir
+    intr = np.array(TARTAN_INTR, np.float32)
+    plane = np.array([0.0, 0.0, 1.0], np.float32)
+    dirs = []
+    for k, scene in enumerate(scenes):
+        d = os.path.join(root, scene)
+        for sub in ('image_left', 'depth_left'):
+            os.makedirs(os.path.join(d, sub))
+        rng = np.random.RandomState(seed + k)
+        tex = syn.make_texture(rng)
+        wfc = syn.make_trajectory(rng, n, step=0.12)
+        for t in range(n):
+            img, z = syn.render_plane_view(tex, wfc[t], intr, H, W, plane,
+                                           3.5)
+            check(cv2.imwrite(os.path.join(d, 'image_left',
+                                           f'{t:06d}_left.png'), img),
+                  f'cv2.imwrite {scene} frame {t}')
+            np.save(os.path.join(d, 'depth_left', f'{t:06d}_left_depth.npy'),
+                    (z * TartanAir.DEPTH_SCALE).astype(np.float32))
+        # the reader's NED -> xyz permutation [1, 2, 0, 4, 5, 3, 6] and
+        # translation / DEPTH_SCALE, inverted
+        ned = np.empty((n, 7))
+        ned[:, [1, 2, 0, 4, 5, 3, 6]] = wfc
+        ned[:, :3] *= TartanAir.DEPTH_SCALE
+        np.savetxt(os.path.join(d, 'pose_left.txt'), ned, delimiter=' ')
+        dirs.append(d)
+    return dirs
+
+
+class TimedSteps:
+    """make_train_step wrapped: each step's wall ms (host clock around a
+    step that ends in a synchronize) and, for the step numbered `trace`,
+    a profiler trace's device busy ms, ops and kernel times by name."""
+
+    def __init__(self, dev, trace=None):
+        self.dev, self.trace, self.walls, self.traced = dev, trace, [], None
+
+    def sync(self):
+        import torch
+        if self.dev.type == 'cuda':
+            torch.cuda.synchronize(self.dev)
+
+    def wrap(self, make):
+        def make_timed(*a, **k):
+            step = make(*a, **k)
+
+            def timed(batch):
+                from torch.profiler import ProfilerActivity, profile
+                traced = len(self.walls) == self.trace
+                self.sync()
+                if traced:
+                    prof = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+                    prof.__enter__()
+                t0 = time.perf_counter()
+                out = step(batch)
+                self.sync()
+                self.walls.append(1e3 * (time.perf_counter() - t0))
+                if traced:
+                    prof.__exit__(None, None, None)
+                    with tempfile.TemporaryDirectory() as tmp:
+                        prof.export_chrome_trace(f'{tmp}/step.json')
+                        self.traced = device_time(f'{tmp}/step.json')
+                return out
+            return timed
+        return make_timed
+
+
+def train_cli_run(dev, datapath, name, n_steps, ckpt=None, trace=None,
+                  n_frames=15, M=80, crop=None):
+    """train/cli.main as a user runs it (--dataset tartan, bf16), its first
+    n_steps steps of the 240,000-step schedule, the reader's scene info
+    pickled beside datapath (not in the package's cache directory); launch
+    counts set to 0 just before and read just after. Returns (history,
+    launches, TimedSteps, host ms per item of the reader)."""
+    from dpvo_torch.data_readers import factory
+    from dpvo_torch.data_readers.tartan import TartanAir
+    from dpvo_torch.ops import corr_grad, corr_onepass
+    from dpvo_torch.train import cli, trainer
+    argv = ['--name', name, '--dataset', 'tartan', '--datapath', datapath,
+            '--steps', '240000', '--n_frames', str(n_frames),
+            '--patches_per_frame', str(M), '--batch', '1', '--device',
+            str(dev)] + (['--ckpt', ckpt] if ckpt else [])
+    timer = TimedSteps(dev, trace)
+    reads = []
+    orig = dict(make=trainer.make_train_step, item=TartanAir.__getitem__,
+                factory=factory.dataset_factory)
+
+    def item(self, i):
+        t0 = time.perf_counter()
+        out = orig['item'](self, i)
+        reads.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def placed(names, **kw):
+        if crop is not None:              # a CPU rehearsal's crop
+            kw['crop_size'] = crop
+        return orig['factory'](names, scene_info_path=os.path.join(
+            datapath, 'scene_info.pickle'), **kw)
+    trainer.make_train_step = timer.wrap(orig['make'])
+    TartanAir.__getitem__ = item
+    factory.dataset_factory = placed
+    corr_onepass.launches = corr_grad.backward_launches = 0
+    try:
+        hist = cli.main(cli.parser().parse_args(argv), n_steps=n_steps)
+    finally:
+        trainer.make_train_step = orig['make']
+        TartanAir.__getitem__ = orig['item']
+        factory.dataset_factory = orig['factory']
+    launches = dict(corr_onepass=corr_onepass.launches,
+                    corr_backward=corr_grad.backward_launches)
+    return hist, launches, timer, reads
+
+
+def rel_l2(a, b):
+    """Relative L2 distance of two gradient dicts as one vector."""
+    num = sum(float(((a[k] - b[k]).double() ** 2).sum()) for k in b)
+    den = sum(float((b[k].double() ** 2).sum()) for k in b)
+    return (num / den) ** 0.5
+
+
+def dp_one_rank(dev, datapath, n_frames=15, M=80, crop=None):
+    """(b): one batch of the cli's pipeline, two plain steps and one step
+    through parallel/mesh.py (a world of one: nccl on CUDA, gloo on the
+    CPU), each from the seeded weights, first as the trainer runs, then
+    under torch.use_deterministic_algorithms (warn_only: index_add_ and
+    the other scatter sums of the forward and backward sorted instead of
+    atomic; corr_backward's dgmap atomics stay): the DP step's gradients
+    against the first plain step's (relative L2 of the whole gradient),
+    beside the two plain steps' spread. The deterministic pair is held to
+    1e-4. Returns {mode: (DP vs plain, plain vs plain)}."""
+    import socket
+    import warnings
+    import torch
+    import torch.distributed as dist
+    from argparse import Namespace
+    from dpvo_torch.data_readers.factory import dataset_factory
+    from dpvo_torch.graft_entry import KeepGrads
+    from dpvo_torch.models.vonet import init_vonet
+    from dpvo_torch.parallel import mesh
+    from dpvo_torch.runtime import numpy_se3 as nse3
+    from dpvo_torch.train import cli, trainer
+    kw = dict(crop_size=crop) if crop else {}
+    db = dataset_factory(['tartan'], datapath=datapath, n_frames=n_frames,
+                         scene_info_path=os.path.join(datapath,
+                                                      'scene_info.pickle'),
+                         **kw)
+    batches = cli.prefetch_batches(db, Namespace(batch=1,
+                                                 patches_per_frame=M),
+                                   np.random.RandomState(1234))
+    batch = next(batches)
+    batches.close()
+    batch['poses_gt'] = nse3.inv(batch.pop('poses_c2w'))
+    batch['rng'] = np.random.RandomState(1235).randint(
+        0, 2 ** 31 - 1, (1, 2)).astype(np.uint32)
+    sched = trainer.edge_schedule(n_frames, M, 18)
+
+    def run(group):
+        net = init_vonet(None, dev)
+        opt = KeepGrads(trainer.make_optimizer(net.parameters()), net)
+        step = trainer.make_train_step(net, opt, sched, group=group)
+        loss, _ = step(mesh.shard_batch(batch, 0, 1))
+        return float(loss), opt.grads
+
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    env = dict(WORLD_SIZE='1', RANK='0', LOCAL_RANK='0',
+               MASTER_ADDR='localhost', MASTER_PORT=str(port))
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = {}
+    try:
+        rank, world, ddev, group = mesh.init_from_env(str(dev))
+        backend = dist.get_backend(group)
+        for mode in ('as the trainer runs', 'deterministic'):
+            det = mode == 'deterministic'
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter('always')
+                torch.use_deterministic_algorithms(det, warn_only=True)
+                try:
+                    (l0, g0), (l1, g1), (l2, g2) = (run(None), run(None),
+                                                    run(group))
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            ops = sorted({str(w.message).split(' does not have')[0]
+                          for w in caught if 'deterministic' in
+                          str(w.message)})
+            dp, spread = rel_l2(g2, g0), rel_l2(g1, g0)
+            out[mode] = (dp, spread)
+            print(f'  (b) {mode}: the step through parallel/mesh.py '
+                  f'({backend}, world size {world}, rank {rank}, {ddev}): '
+                  f'loss {l2!r} (plain {l0!r}, {l1!r}); gradients vs the '
+                  f'plain step {dp!r} relative L2, two plain steps {spread!r}'
+                  + (f'; ops without a deterministic version: {ops}'
+                     if det else ''), flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    check(torch.device(ddev).type == torch.device(dev).type and
+          backend == ('nccl' if torch.device(dev).type == 'cuda' else 'gloo'),
+          f'(b) ran on {ddev} over {backend}')
+    dp, spread = out['deterministic']
+    check(np.isfinite(dp) and dp <= 1e-4,
+          f'(b) deterministic DP step vs plain: {dp} (bound 1e-4)')
+    return out
+
+
+def evaluate_on_card(dev, scenes):
+    """(c): evaluate_tartan.evaluate over the given validation scenes (its
+    test_split patched to them), default.yaml, the micro VONet, the motion
+    probe forced; launch counts set to 0 just before and read just after.
+    Returns (results, wall ms per frame, K1 launches)."""
+    from dpvo_torch import evaluate_tartan
+    from dpvo_torch.config import cfg as base_cfg
+    from dpvo_torch.data_readers import tartan
+    cfg = base_cfg.clone()
+    cfg.merge_from_file(CONFIG)
+    orig = (tartan.test_split, evaluate_tartan.DPVO)
+
+    def forced(*a, **k):
+        slam = orig[1](*a, **k)
+        slam.force_accept = True
+        return slam
+    tartan.test_split, evaluate_tartan.DPVO = scenes, forced
+    n = sum(len(os.listdir(os.path.join('datasets', 'TartanAir', s,
+                                        'image_left'))) for s in scenes)
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        res = evaluate_tartan.evaluate(cfg, WEIGHTS, device=str(dev))
+        wall = 1e3 * (time.perf_counter() - t0) / n
+    finally:
+        tartan.test_split, evaluate_tartan.DPVO = orig
+    return res, wall, read_launches()['corr_onepass']
+
+
+def train_eval_on_card(dev, smi, H=480, W=640, n_frames=15, M=80, crop=None,
+                       n_scene=70, n_val=40):
+    """Phase 16 (see the module docstring). H, W, n_frames, M and crop
+    shrink it for a rehearsal on the CPU."""
+    import torch
+    from dpvo_torch import graft_entry
+    from dpvo_torch.data_readers import tartan
+    from dpvo_torch.models.checkpoint import save_params_npz
+    from dpvo_torch.models.vonet import init_vonet
+    t_phase = time.perf_counter()
+    old_cwd = os.getcwd()
+    old_split = tartan.test_split
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            root = os.path.join(tmp, 'datasets', 'TartanAir')
+            t0 = time.perf_counter()
+            train = write_tartan(root, ['s000/s000/Easy/P000',
+                                        's001/s001/Easy/P001'], n_scene, H,
+                                 W, seed=40)
+            # two validation scenes: the first n_val frames of each
+            val = ['v000/v000/Easy/P000', 'v001/v001/Easy/P001']
+            for src, scene in zip(train, val):
+                d = os.path.join(root, scene, 'image_left')
+                os.makedirs(d)
+                for f in sorted(os.listdir(os.path.join(src, 'image_left'))
+                                )[:n_val]:
+                    os.link(os.path.join(src, 'image_left', f),
+                            os.path.join(d, f))
+                rows = open(os.path.join(src, 'pose_left.txt')).readlines()
+                with open(os.path.join(root, scene, 'pose_left.txt'),
+                          'w') as f:
+                    f.writelines(rows[:n_val])
+            tartan.test_split = val     # the reader reserves them too
+            print(f'  TartanAir layout: 2 scenes x {n_scene} frames at '
+                  f'{H}x{W} (+ 2 validation scenes of {n_val}) written in '
+                  f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+            # (a) train/cli.main, structure-only, then from a checkpoint
+            runs = {}
+            ckpt = os.path.join(tmp, 'seeded.npz')
+            save_params_npz(init_vonet(None, 'cpu').state_dict(), ckpt)
+            for label, kw in (('structure-only', {}),
+                              ('full, --ckpt', dict(ckpt=ckpt, trace=2))):
+                t0 = time.perf_counter()
+                hist, launches, timer, reads = train_cli_run(
+                    dev, root, label[:4], 3, n_frames=n_frames, M=M,
+                    crop=crop, **kw)
+                runs[label] = (hist, launches, timer, reads)
+                whole = time.perf_counter() - t0
+                steps = len(hist)
+                per = {k: v / steps for k, v in launches.items()}
+                print(f'  (a) train/cli.main {label}: {steps} steps in '
+                      f'{whole:.1f} s (setup and reader included); losses '
+                      f'{[h["loss"] for h in hist]}; aux keys '
+                      f'{sorted(hist[-1])}; wall ms per step '
+                      f'{timer.walls!r}; launches per step {per}; reader '
+                      f'host ms per item {np.round(reads, 1).tolist()} '
+                      f'({len(reads)} items for {steps} batches of 1)',
+                      flush=True)
+                check(steps == 3 and all(np.isfinite(v) for h in hist
+                                         for v in h.values()),
+                      f'(a) {label}: {hist}')
+                check(launches == dict(corr_onepass=18 * steps,
+                                       corr_backward=18 * steps),
+                      f'(a) {label}: launches {launches}, expected 18 per '
+                      f'step')
+                check(('tr' in hist[-1]) == ('ckpt' in kw),
+                      f'(a) {label}: aux {sorted(hist[-1])}')
+            hist, launches, timer, reads = runs['full, --ckpt']
+            busy, by_name, n_ops = timer.traced
+            wall = float(np.median(timer.walls[:2]))
+            print(f'  {smi}: (a) full step wall {wall!r} ms (median of the '
+                  f'untraced steps), device busy {busy!r} ms in {n_ops} '
+                  f'device ops (profiler, the third step), idle share '
+                  f'{1.0 - busy / wall if busy else "not measured"}; traced '
+                  f'step {timer.walls[2]!r} ms; reader {np.median(reads)!r} '
+                  f'host ms per item (median; the prefetch thread, beside '
+                  f'the steps)', flush=True)
+            for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+                print(f'    {v:9.3f} ms/step  {k[:100]}')
+
+            # (b) the same step over torch.distributed, one rank
+            dp_one_rank(dev, root, n_frames=n_frames, M=M, crop=crop)
+
+            # (c) evaluate_tartan on the two validation scenes
+            res, wall, k1 = evaluate_on_card(dev, val)
+            print(f'  (c) evaluate_tartan.evaluate over 2 scenes x {n_val} '
+                  f'frames at {H}x{W}, default.yaml, micro VONet, probe '
+                  f'forced: {res}; wall {wall!r} ms per frame (whole run, '
+                  f'runtime builds included); K1 launches {k1}', flush=True)
+            check(all(np.isfinite(v) for v in res.values()) and k1 >= 2 * (
+                12 + (n_val - 8) + 12), f'(c) {res}, K1 launches {k1}')
+
+            # (d) graft_entry.entry()
+            fn, args = graft_entry.entry(str(dev))
+            reset_launches()
+            t0 = time.perf_counter()
+            fn(*args)
+            if torch.device(dev).type == 'cuda':
+                torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            k1 = read_launches()['corr_onepass']
+            print(f'  (d) graft_entry.entry(): one DeviceVO frame at 640x480 '
+                  f'in {ms!r} ms, K1 launches {k1}', flush=True)
+            check(k1 >= 1, f'(d) K1 launched {k1} times')
+        finally:
+            tartan.test_split = old_split
+            os.chdir(old_cwd)
+    print(f'  phase 16: {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
 def check_items(where, items, E, cap, max_pos):
     """A target-tile chain's work items as it made them (corr_probes.
     pair_work, slab_work): each of 1 .. cap edges, together every edge
@@ -2177,8 +2494,15 @@ def probes():
     return entries
 
 
-def main():
+def main(argv=None):
+    import argparse
     import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--phases', default=None,
+                    help='for development: run the environment, the build '
+                         'and these of phases 14 and 16 (e.g. 14,16), then '
+                         'stop without the result lines')
+    only = ap.parse_args(argv).phases
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
@@ -2187,14 +2511,14 @@ def main():
     dev = torch.device('cuda')
     name = torch.cuda.get_device_name(0)
 
-    print('[1/15] environment', flush=True)
+    print('[1/16] environment', flush=True)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f'  torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.device_count()} device(s): {name}')
 
-    print('[2/15] build', flush=True)
+    print('[2/16] build', flush=True)
     from concurrent.futures import ThreadPoolExecutor
     from dpvo_torch.ops import corr_fused, corr_grad, corr_onepass, \
         corr_probes
@@ -2270,7 +2594,20 @@ def main():
               f'SM; ring of {sh["stages"]} stages x {sh["rows"]} rows, '
               f'{sh["warps"]} consumer warps')
 
-    print('[3/15] kernels vs plain', flush=True)
+    if only is not None:
+        for n in sorted(int(x) for x in only.split(',')):
+            check(n in (14, 16), f'--phases takes 14 and 16, not {n}')
+            if n == 14:
+                print('[14/16] classic loop closure on the card', flush=True)
+                classic_on_card(dev, smi)
+            else:
+                print('[16/16] training and evaluation entry points on the '
+                      'card', flush=True)
+                train_eval_on_card(dev, smi)
+        print(f'{smi}\nchip_smoke: phases {only} only; no result lines')
+        return 0
+
+    print('[3/16] kernels vs plain', flush=True)
     err, k_ms, p_ms, b1, staged = kernel_vs_plain(
         dev, E=49152, F=36, H1=120, W1=160, Ng=36 * 96, nv=40013, seed=0,
         timed=True)
@@ -2285,7 +2622,7 @@ def main():
           f'{streamed / 1e9!r} GB ({streamed / k2[1] / 1e9!r} TB/s)',
           flush=True)
 
-    print('[4/15] DeviceVO main path', flush=True)
+    print('[4/16] DeviceVO main path', flush=True)
     py_ms, launch_us, objs = host_pace(dev)
     print(f'  host pace: Python loop {py_ms!r} ms, {launch_us!r} us per '
           f'launch, {objs} objects tracked by gc', flush=True)
@@ -2293,7 +2630,7 @@ def main():
     check(dv['corr_onepass'] >= dv_iters, f'K1 launched '
           f'{dv["corr_onepass"]} times, expected >= {dv_iters}')
 
-    print('[5/15] hybrid main path', flush=True)
+    print('[5/16] hybrid main path', flush=True)
     hy, hy_iters, hy_stats = main_path(dev, 'default.yaml + GRADIENT_BIAS',
                                        'fused_k',
                                        CENTROID_SEL_STRAT='GRADIENT_BIAS')
@@ -2316,7 +2653,7 @@ def main():
               f'{st["busy"]!r}, idle {st["idle"]!r}; correlation ms/frame: '
               f'{corr}', flush=True)
 
-    print('[6/15] DeviceVO with fused_k', flush=True)
+    print('[6/16] DeviceVO with fused_k', flush=True)
     dk, dk_iters, _ = main_path(dev, 'default.yaml', 'fused_k', n_frames=12,
                                 measure=False)
     check(dk['corr_planes'] >= dk_iters and
@@ -2324,34 +2661,38 @@ def main():
           f'K2 / K3 launched {dk}, expected >= {dk_iters} / '
           f'{2 * dk_iters}')
 
-    print('[7/15] CUDA vs CPU', flush=True)
+    print('[7/16] CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev)
 
-    print('[8/15] correlation probes', flush=True)
+    print('[8/16] correlation probes', flush=True)
     probe_entries = probes()
 
-    print('[9/15] DeviceVO on yuv420, per frame and chunked', flush=True)
+    print('[9/16] DeviceVO on yuv420, per frame and chunked', flush=True)
     ingest_and_chunks(dev, smi, dv_stats)
 
-    print('[10/15] HybridVO on yuv420, CUDA vs CPU', flush=True)
+    print('[10/16] HybridVO on yuv420, CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev, runs=(
         ('HybridVO', (256, 320), 'onepass', dict(GB, UPLOAD_FORMAT='yuv420'),
          ('corr_onepass',)),), precisions=(True,))
 
-    print('[11/15] accuracy on the card', flush=True)
+    print('[11/16] accuracy on the card', flush=True)
     accuracy_on_card(dev)
 
-    print('[12/15] DPV-SLAM (learned loop closure) on the card', flush=True)
+    print('[12/16] DPV-SLAM (learned loop closure) on the card', flush=True)
     dpv_slam_on_card(dev, smi)
 
-    print('[13/15] training on the card', flush=True)
+    print('[13/16] training on the card', flush=True)
     backward_entry = train_on_card(dev, smi)
 
-    print('[14/15] classic loop closure on the card', flush=True)
+    print('[14/16] classic loop closure on the card', flush=True)
     classic_on_card(dev, smi)
 
-    print('[15/15] entry points on the card', flush=True)
+    print('[15/16] entry points on the card', flush=True)
     entry_points_on_card(dev, smi, dv_stats, ho_stats)
+
+    print('[16/16] training and evaluation entry points on the card',
+          flush=True)
+    train_eval_on_card(dev, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return dict(name=name, route='cuda', source=source,

@@ -1,13 +1,13 @@
 """Synthetic photometric scenes with exact ground truth.
 
-Copy of the parts of dpvo_tpu/data_readers/synthetic.py that make_sequence
-and make_batch need (numpy only; copied so this package never imports the
-JAX package; the same seed gives the same arrays, bit for bit). Renders a
-textured slanted plane (closed-form ray intersection, so images, inverse
-depth and poses are mutually exact) under a smooth random camera
-trajectory, forward or out-and-back: the accuracy gates' sequences
-(dpvo_torch/accuracy.py) and, stacked by make_batch_from / make_batch, the
-trainer's batches.
+Copy of dpvo_tpu/data_readers/synthetic.py (numpy only; copied so this
+package never imports the JAX package; the same seed gives the same
+arrays, bit for bit). Renders a textured slanted plane (closed-form ray
+intersection, so images, inverse depth and poses are mutually exact)
+under a smooth random camera trajectory, forward or out-and-back: the
+accuracy gates' sequences (dpvo_torch/accuracy.py), stacked by
+make_batch_from / make_batch the trainer's batches, and as the Synthetic
+dataset train/cli.py's --dataset synthetic.
 """
 from __future__ import annotations
 
@@ -201,3 +201,42 @@ def make_batch(seeds, T=15, M=8, H=64, W=96, step=0.12):
     seqs = [make_sequence(s, T=T, H=H, W=W, step=step) for s in seeds]
     rng = np.random.RandomState(seeds[0] * 7919 + 13)
     return make_batch_from(seqs, rng, M)
+
+
+class Synthetic:
+    """Dataset-protocol wrapper over the renderer for train/cli.py
+    (dpvo_tpu's Synthetic, the same renders). Item contract matches
+    TartanAir's (data_readers/tartan.py): (images (T, H, W, 3) u8, poses
+    world-from-cam (T, 7), disps FULL-res (T, H, W), intrinsics (T, 4)).
+    Scenes render lazily and cache."""
+
+    def __init__(self, n_scenes=64, n_frames=15, H=240, W=320, seed0=5000,
+                 step=0.12, **_):
+        self.n_scenes = n_scenes
+        self.T, self.H, self.W = n_frames, H, W
+        self.seed0, self.step = seed0, step
+        self._cache = {}
+
+    def __len__(self):
+        return self.n_scenes
+
+    def __getitem__(self, i):
+        i = int(i) % self.n_scenes
+        if i not in self._cache:
+            rng = np.random.RandomState(self.seed0 + i)
+            tex = make_texture(rng)
+            a, b = rng.uniform(-0.25, 0.25, 2)
+            z0 = rng.uniform(3.0, 4.0)
+            n = np.array([-a, -b, 1.0], np.float32)
+            intr = np.array([0.9 * self.W, 0.9 * self.W,
+                             self.W / 2, self.H / 2], np.float32)
+            wfc = make_trajectory(rng, self.T, step=self.step, z0=z0)
+            images = np.zeros((self.T, self.H, self.W, 3), np.uint8)
+            disps = np.zeros((self.T, self.H, self.W), np.float32)
+            for t in range(self.T):
+                images[t], z = render_plane_view(tex, wfc[t], intr,
+                                                 self.H, self.W, n, z0)
+                disps[t] = 1.0 / np.maximum(z, 0.2)
+            self._cache[i] = (images, wfc.copy(), disps,
+                              np.tile(intr, (self.T, 1)))
+        return self._cache[i]

@@ -9,12 +9,16 @@ keyframe-compacted indices, detects loops with a score threshold, NMS
 against previous closures, and a consecutive-hit requirement.
 
 The backend is dpvo_torch/native/dpretrieval.cpp (vocabulary-free tf-idf
-BoW, a copy of dpvo_tpu's) instead of DBoW2 + a downloaded ORB vocabulary.
-library_path() compiles it with g++ against OpenCV on first use into
-build/dpvo_torch_native/libdpretrieval_<hash>.so (one library per hash of
-the source and the flags), renamed into place atomically so that
-concurrent processes agree on one file; a failed build raises with the
-compiler's output.
+BoW, dpvo_tpu's with its OpenCV half moved here) instead of DBoW2 + a
+downloaded ORB vocabulary. ORB detection (cv2.ORB_create(750, 1.09, 14),
+the detector dpvo_tpu's library runs in C++; the same keypoints and
+descriptors, bit for bit) and the cross-checked Hamming matching
+(cv2.BFMatcher) run in Python, so a cv2 wheel without OpenCV's C++
+headers or libraries is enough. library_path() compiles the library with
+plain g++ on first use into build/dpvo_torch_native/libdpretrieval_<hash>.so
+(one library per hash of the source and the flags), renamed into place
+atomically so that concurrent processes agree on one file; a failed build
+raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -42,24 +46,14 @@ SOURCE = Path(__file__).resolve().parents[2] / 'native' / 'dpretrieval.cpp'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'dpvo_torch_native'
 
 
-def _opencv_flags():
-    """g++ flags for OpenCV: pkg-config's for opencv4, else the headers
-    and the two libraries the source needs at their Debian paths."""
-    if shutil.which('pkg-config'):
-        proc = subprocess.run(['pkg-config', '--cflags', '--libs', 'opencv4'],
-                              capture_output=True, text=True)
-        if proc.returncode == 0 and proc.stdout.strip():
-            return proc.stdout.split()
-    return ['-I/usr/include/opencv4', '-lopencv_core', '-lopencv_features2d']
+FLAGS = ['-O2', '-shared', '-fPIC', '-std=c++17']
 
 
 def library_path():
     """The built library, compiled first if this hash of the source and
     flags has none yet."""
-    flags = ['-O2', '-shared', '-fPIC', '-std=c++17']
-    cv = _opencv_flags()
     h = hashlib.sha1(SOURCE.read_bytes())
-    h.update(' '.join(flags + cv).encode())
+    h.update(' '.join(FLAGS).encode())
     so = BUILD_DIR / f'libdpretrieval_{h.hexdigest()[:12]}.so'
     if so.exists():
         return so
@@ -68,13 +62,12 @@ def library_path():
                            f'{SOURCE}')
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-    proc = subprocess.run(['g++', *flags, str(SOURCE), '-o', str(tmp), *cv],
+    proc = subprocess.run(['g++', *FLAGS, str(SOURCE), '-o', str(tmp)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f'building the native retrieval library (OpenCV core + '
-            f'features2d) failed ({proc.returncode}):\n{proc.stdout}\n'
-            f'{proc.stderr}')
+            f'building the native retrieval library failed '
+            f'({proc.returncode}):\n{proc.stdout}\n{proc.stderr}')
     os.replace(tmp, so)
     return so
 
@@ -83,31 +76,45 @@ def _load_lib(path=None):
     lib = ctypes.CDLL(str(path or library_path()))
     lib.dpr_create.restype = ctypes.c_void_p
     lib.dpr_create.argtypes = [ctypes.c_int]
-    lib.dpr_insert_image.argtypes = [
-        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
-        ctypes.c_int]
+    lib.dpr_insert_features.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int]
     lib.dpr_query.argtypes = [ctypes.c_void_p, ctypes.c_int,
                               ctypes.POINTER(ctypes.c_float),
                               ctypes.POINTER(ctypes.c_int)]
-    lib.dpr_match_pair.restype = ctypes.c_int
-    lib.dpr_match_pair.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                   ctypes.c_int,
-                                   ctypes.POINTER(ctypes.c_double),
-                                   ctypes.c_int]
     return lib
+
+
 class NativeRetrieval:
-    """Thin in-process wrapper (same API as the reference pybind class)."""
+    """Thin in-process wrapper (same API as the reference pybind class):
+    ORB and matching on cv2, the BoW database in the library. Raises
+    ImportError without cv2."""
 
     def __init__(self, rad=RAD, path=None):
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError('the retrieval backend needs OpenCV, whose '
+                              f'cv2 module is missing: {e}') from e
+        self._cv2 = cv2
+        # finer scale pyramid than ORB's default (1.2^8): under moderate
+        # zoom a keypoint re-detects closer to its original octave, keeping
+        # the BRIEF pattern footprint, and hence the hashed words, stable
+        self._orb = cv2.ORB_create(nfeatures=750, scaleFactor=1.09,
+                                   nlevels=14)
         self._lib = _load_lib(path)
         self._h = self._lib.dpr_create(rad)
+        self._feats = []          # per image: (keypoints (n, 2), descs)
 
     def insert_image(self, image):
         image = np.ascontiguousarray(image, np.uint8)
-        h, w, _ = image.shape
-        self._lib.dpr_insert_image(
-            self._h, image.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            h, w)
+        kps, descs = self._orb.detectAndCompute(image, None)
+        pts = np.array([kp.pt for kp in kps], np.float32).reshape(-1, 2)
+        descs = (np.zeros((0, 32), np.uint8) if descs is None else
+                 np.ascontiguousarray(descs, np.uint8))
+        self._feats.append((pts, descs))
+        self._lib.dpr_insert_features(
+            self._h, descs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            len(descs))
 
     def query(self, i):
         score = ctypes.c_float()
@@ -116,11 +123,22 @@ class NativeRetrieval:
         return float(score.value), int(j.value), None
 
     def match_pair(self, ti, qi, cap=2048):
-        out = np.zeros((cap, 5), np.float64)
-        n = self._lib.dpr_match_pair(
-            self._h, ti, qi,
-            out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), cap)
-        return out[:n]
+        """Cross-checked Hamming matches of image qi's descriptors against
+        image ti's, in query order: rows (tx, ty, qx, qy, distance), at
+        most cap."""
+        n = len(self._feats)
+        if not (0 <= ti < n and 0 <= qi < n):
+            return np.zeros((0, 5), np.float64)
+        (tp, td), (qp, qd) = self._feats[ti], self._feats[qi]
+        if len(td) == 0 or len(qd) == 0:
+            return np.zeros((0, 5), np.float64)
+        matcher = self._cv2.BFMatcher(self._cv2.NORM_HAMMING, crossCheck=True)
+        m = matcher.match(qd, td)[:cap]
+        t = np.array([x.trainIdx for x in m], np.int64)
+        q = np.array([x.queryIdx for x in m], np.int64)
+        d = np.array([x.distance for x in m], np.float64)
+        return np.concatenate([tp[t], qp[q], d[:, None]], axis=1,
+                              dtype=np.float64).reshape(-1, 5)
 
 
 def _retrieval_loop(in_queue, out_queue, rad, ready, path):

@@ -1,9 +1,11 @@
 // Native image-retrieval backend for classical loop closure.
 //
 // Equivalent of the reference's DPRetrieval pybind module
-// (the reference DPRetrieval/src/main.cpp:39-151): per-frame ORB
-// detect+compute, bag-of-words database insert/query with a minimum
-// index-distance guard, and brute-force Hamming keypoint matching.
+// (the reference DPRetrieval/src/main.cpp:39-151): bag-of-words database
+// insert/query with a minimum index-distance guard. The caller computes
+// each frame's ORB keypoints and descriptors (cv2.ORB_create(750, 1.09, 14)
+// in retrieval_native.py, the detector dpvo_tpu's copy of this file runs in
+// C++) and matches them (cv2.BFMatcher), so this file needs no OpenCV.
 //
 // Difference by design: the reference requires a pretrained DBoW2 ORB
 // vocabulary file; this implementation is vocabulary-free — each 256-bit ORB
@@ -12,9 +14,6 @@
 // Self-contained (no external vocabulary download), same API surface.
 //
 // Exposed as a plain C API for ctypes binding (no pybind11 in this image).
-
-#include <opencv2/core.hpp>
-#include <opencv2/features2d.hpp>
 
 #include <algorithm>
 #include <cmath>
@@ -57,8 +56,7 @@ inline uint32_t descriptor_word(const uint8_t* d, int table) {
 }
 
 struct ImageEntry {
-  std::vector<cv::KeyPoint> kps;
-  cv::Mat descs;                          // Nx32 CV_8U
+  int rows = 0;                           // descriptors (keypoints)
   std::unordered_map<uint32_t, float> bow;  // word -> tf weight
   float norm = 0.f;
 };
@@ -67,31 +65,25 @@ struct ImageEntry {
 
 struct DPR {
   int rad;
-  cv::Ptr<cv::ORB> orb;
   std::vector<ImageEntry> images;
   // inverted index: word -> list of (image, tf)
   std::unordered_map<uint32_t, std::vector<std::pair<int, float>>> inverted;
   std::unordered_map<uint32_t, int> doc_freq;
 
-  explicit DPR(int rad_) : rad(rad_) {
-    // finer scale pyramid than ORB's default (1.2^8): under moderate zoom
-    // a keypoint re-detects closer to its original octave, keeping the
-    // BRIEF pattern footprint — and hence the hashed words — stable
-    orb = cv::ORB::create(/*nfeatures=*/750, /*scaleFactor=*/1.09f,
-                          /*nlevels=*/14);
-  }
+  explicit DPR(int rad_) : rad(rad_) {}
 
-  void insert(const uint8_t* data, int h, int w) {
-    cv::Mat image(h, w, CV_8UC3, const_cast<uint8_t*>(data));
+  // one frame's n ORB descriptors, n x 32 bytes (the caller keeps them
+  // and the keypoints for matching)
+  void insert(const uint8_t* descs, int n) {
     ImageEntry e;
-    orb->detectAndCompute(image, cv::noArray(), e.kps, e.descs);
+    e.rows = n;
 
     std::unordered_map<uint32_t, int> counts;
-    for (int r = 0; r < e.descs.rows; r++) {
-      const uint8_t* d = e.descs.ptr<uint8_t>(r);
+    for (int r = 0; r < e.rows; r++) {
+      const uint8_t* d = descs + 32 * static_cast<size_t>(r);
       for (int t = 0; t < kTables; t++) counts[descriptor_word(d, t)]++;
     }
-    const float total = std::max<float>(1.f, e.descs.rows * kTables);
+    const float total = std::max<float>(1.f, e.rows * kTables);
     for (const auto& kv : counts) {
       const float tf = kv.second / total;
       e.bow[kv.first] = tf;
@@ -150,34 +142,6 @@ struct DPR {
       }
     }
   }
-
-  // cross-checked Hamming matches; out rows: tx, ty, qx, qy, dist
-  int match_pair(int ti, int qi, double* out, int cap) const {
-    if (ti < 0 || qi < 0 || ti >= static_cast<int>(images.size()) ||
-        qi >= static_cast<int>(images.size()))
-      return 0;
-    const auto& T = images[ti];
-    const auto& Q = images[qi];
-    if (T.descs.empty() || Q.descs.empty()) return 0;
-
-    cv::BFMatcher matcher(cv::NORM_HAMMING, /*crossCheck=*/true);
-    std::vector<cv::DMatch> matches;
-    matcher.match(Q.descs, T.descs, matches);
-
-    int n = 0;
-    for (const auto& m : matches) {
-      if (n >= cap) break;
-      const auto& tp = T.kps[m.trainIdx].pt;
-      const auto& qp = Q.kps[m.queryIdx].pt;
-      out[5 * n + 0] = tp.x;
-      out[5 * n + 1] = tp.y;
-      out[5 * n + 2] = qp.x;
-      out[5 * n + 3] = qp.y;
-      out[5 * n + 4] = m.distance;
-      n++;
-    }
-    return n;
-  }
 };
 
 extern "C" {
@@ -186,18 +150,14 @@ DPR* dpr_create(int rad) { return new DPR(rad); }
 void dpr_destroy(DPR* p) { delete p; }
 int dpr_size(DPR* p) { return static_cast<int>(p->images.size()); }
 
-void dpr_insert_image(DPR* p, const uint8_t* img, int h, int w) {
-  p->insert(img, h, w);
+void dpr_insert_features(DPR* p, const uint8_t* descs, int n) {
+  p->insert(descs, n);
 }
 
 void dpr_query(DPR* p, int i, float* score, int* j) { p->query(i, score, j); }
 
-int dpr_match_pair(DPR* p, int ti, int qi, double* out, int cap) {
-  return p->match_pair(ti, qi, out, cap);
-}
-
 int dpr_num_keypoints(DPR* p, int i) {
   if (i < 0 || i >= static_cast<int>(p->images.size())) return 0;
-  return static_cast<int>(p->images[i].kps.size());
+  return p->images[i].rows;
 }
 }

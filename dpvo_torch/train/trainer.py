@@ -11,8 +11,10 @@ Where it differs from dpvo_tpu:
     and a backward that recomputes the taps (csrc/corr_backward.cu on the
     card), where dpvo_tpu differentiates the gather form;
   * the B sequences of a batch run one after another, each one's backward
-    before the next (dpvo_tpu vmaps them); the step is eager, no jit, and
-    there is no mesh (data-parallel training waits with parallel/mesh.py);
+    before the next (dpvo_tpu vmaps them); the step is eager, no jit;
+    data parallelism is one process per card over torch.distributed
+    (make_train_step's group, parallel/mesh.py) where dpvo_tpu shards the
+    batch over a 'dp' mesh;
   * the two random regularizers draw from a torch.Generator seeded from the
     batch's `rng` ints, so they do not give jax.random's masks.
 """
@@ -26,6 +28,7 @@ from .. import lie
 from ..models.vonet import DIM, P
 from ..ops.corr_grad import corr_two_level_train
 from ..ops.patchify import extract_patches
+from ..parallel.mesh import all_gather_cat, all_reduce_grads
 from ..runtime.device_vo import _median
 from .ba import bundle_adjust_train
 
@@ -394,7 +397,7 @@ SEQ_KEYS = ('images', 'poses_gt', 'disps', 'intrinsics', 'coords',
 
 
 def make_train_step(net, optimizer, sched, structure_only=False,
-                    mixed_precision=True):
+                    mixed_precision=True, group=None):
     """step(batch) -> (mean loss, aux): one optimizer step of `net` (f32
     master parameters) on a batch dict with leading batch axis B
     (dpvo_tpu's contract: images (B, T, H, W, 3), poses_gt (B, T, 7),
@@ -402,8 +405,16 @@ def make_train_step(net, optimizer, sched, structure_only=False,
     depth_init (B, T, M); optional rng (B, k) ints, gs_init (B, T, 7)),
     numpy arrays or tensors. Under mixed precision each sequence runs on a
     bf16 copy of the parameters made inside the step, so the gradients
-    land on the f32 masters."""
+    land on the f32 masters.
+
+    With a torch.distributed group of W ranks the batch is this rank's
+    share (parallel/mesh.py:shard_batch) of a global batch of W x B: each
+    sequence's loss is scaled by 1 / (W x B), the gradients are summed
+    over the ranks before the optimizer's clip (so clip and AdamW see the
+    global batch's gradient on every rank), and the mean loss and aux are
+    the global batch's, gathered in rank order."""
     unroll = _SequenceLoss(net, sched, structure_only)
+    world = 1 if group is None else torch.distributed.get_world_size(group)
 
     def step(batch):
         dev = next(net.parameters()).device
@@ -424,11 +435,17 @@ def make_train_step(net, optimizer, sched, structure_only=False,
                                                        kw)
             else:
                 loss, aux = unroll(*args, **kw)
-            (loss / B).backward()
+            (loss / (world * B)).backward()
             losses.append(loss.detach())
             auxes.append(aux)
+        if group is not None:
+            all_reduce_grads(net.parameters(), group)
         optimizer.step()
+        loss = torch.stack(losses)
         aux = {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
-        return torch.stack(losses).mean(), aux
+        if group is not None:
+            loss = all_gather_cat(loss, group)
+            aux = {k: all_gather_cat(v, group) for k, v in aux.items()}
+        return loss.mean(), aux
 
     return step

@@ -2,9 +2,10 @@
 HybridVO) against dpvo_tpu's, on the CPU (torch on one thread):
 
 * the native retrieval library the port builds from dpvo_torch/native/
-  into build/dpvo_torch_native/ gives dpvo_tpu's library's query scores
-  and indices on test_classic_lc.py's textured frames; a failed build
-  raises with the compiler's output;
+  into build/dpvo_torch_native/ (the BoW alone, plain g++: no OpenCV
+  header or flag; ORB and matching on cv2) gives dpvo_tpu's library's
+  query scores, indices and matches on test_classic_lc.py's textured
+  frames; a failed build raises with the compiler's output;
 * the whole slice on test_classic_lc.py's closed-loop scene (an
   out-and-back pan over a textured plane, plane_oracle's targets, 36
   frames at 128x192; dpvo_torch.accuracy.classic_run), with sync_pgo on
@@ -65,11 +66,34 @@ def test_retrieval_library_matches_jax():
 def test_failed_build_raises(monkeypatch, tmp_path):
     from dpvo_torch.loop_closure.retrieval import retrieval_native as tret
     monkeypatch.setattr(tret, 'BUILD_DIR', tmp_path)
-    monkeypatch.setattr(tret, '_opencv_flags',
-                        lambda: ['-I/nonexistent', '-lno_such_library'])
+    monkeypatch.setattr(tret, 'FLAGS', tret.FLAGS + ['-lno_such_library'])
     with pytest.raises(RuntimeError, match='native retrieval library'):
         tret.library_path()
     assert not list(tmp_path.glob('*.so'))
+
+
+def test_retrieval_library_needs_no_opencv(monkeypatch, tmp_path):
+    """The port's library includes no OpenCV header and its g++ command
+    names no OpenCV flag: ORB and matching run on cv2 in Python, so a cv2
+    wheel without OpenCV's C++ side is enough."""
+    import re
+    import subprocess
+    from dpvo_torch.loop_closure.retrieval import retrieval_native as tret
+    src = tret.SOURCE.read_text()
+    assert not re.search(r'#\s*include\s*[<"]opencv', src)
+    assert 'cv::' not in src
+    cmds = []
+    run = subprocess.run
+
+    def spy(cmd, *a, **k):
+        cmds.append(list(cmd))
+        return run(cmd, *a, **k)
+    monkeypatch.setattr(tret, 'BUILD_DIR', tmp_path)
+    monkeypatch.setattr(tret.subprocess, 'run', spy)
+    path = tret.library_path()
+    assert path.exists() and path.parent == tmp_path
+    assert len(cmds) == 1 and cmds[0][0] == 'g++'
+    assert not [a for a in cmds[0] if 'opencv' in a.lower()], cmds[0]
 
 
 def _jax_classic(scene):

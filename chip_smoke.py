@@ -184,8 +184,14 @@ Phases (any failure raises, so the exit code is non-zero):
      update iteration; (d) graft_entry.entry() run once: K1 launched.
      train_eval_on_card(..., H, W, n_frames, M, crop) shrinks it for a CPU
      rehearsal (the launch checks then fail by design).
-With --phases 14,16 (development) the script runs phases 1, 2 and those
-named, then stops without the result lines.
+ 17. the geometry library (lie.py, projective.py) on the card against the
+     CPU in f32, the same inputs: transform with its analytic Jacobians
+     for SE3 and Sim3, flow_mag and point_cloud at E = 49,152 edges of 3x3
+     patches, each group's class ops on 4,096 Random elements, finite
+     gradients at the identity; every difference printed beside its
+     bound, then one transform call's time and the phase's seconds.
+With --phases 14,16,17 (development; any of them) the script runs phases
+1, 2 and those named, then stops without the result lines.
 The last two lines of stdout are a JSON line with the kernels' numbers and
 {"ok": true, "device": {...}}.
 """
@@ -2401,6 +2407,131 @@ def train_eval_on_card(dev, smi, H=480, W=640, n_frames=15, M=80, crop=None,
     print(f'  phase 16: {time.perf_counter() - t_phase:.1f} s', flush=True)
 
 
+def geometry_scene(E, N, M, seed):
+    """E edges over N frames of M 3x3 patches in a 160x120 map (default.
+    yaml's 640x480 at 1/4): poses within 0.05 of the identity, inverse
+    depths 0.3-2, so every tap lands at Z in ~[0.4, 3.5], away from the
+    0.2 gates; ii != jj, kk a patch of frame ii."""
+    from dpvo_torch import lie
+    import torch
+    rng = np.random.RandomState(seed)
+    xi = torch.from_numpy(rng.randn(N, 6).astype(np.float32) * 0.05)
+    poses = lie.se3_exp(xi)
+    intr = torch.tensor([[120.0, 120.0, 80.0, 60.0]]).repeat(N, 1)
+    c = np.stack([rng.uniform(4, 156, N * M), rng.uniform(4, 116, N * M)], 1)
+    g = np.arange(-1, 2)
+    patches = np.stack([
+        np.broadcast_to(c[:, 0, None, None] + g[None, None, :], (N * M, 3, 3)),
+        np.broadcast_to(c[:, 1, None, None] + g[None, :, None], (N * M, 3, 3)),
+        np.broadcast_to(rng.uniform(0.3, 2.0, (N * M, 1, 1)), (N * M, 3, 3))],
+        axis=1).astype(np.float32)
+    ii = rng.randint(0, N, E)
+    jj = (ii + rng.randint(1, N, E)) % N
+    kk = ii * M + rng.randint(0, M, E)
+    scales = torch.from_numpy(np.exp(rng.randn(N, 1) * 0.1).astype(np.float32))
+    return (poses, torch.from_numpy(patches), intr,
+            *(torch.from_numpy(a) for a in (ii, jj, kk))), scales
+
+
+def geometry_on_card(dev, smi):
+    """Phase 17: the geometry library (lie.py, projective.py) on the card
+    against the CPU in f32, the same inputs: transform with jacobian=True
+    for SE3 and Sim3, flow_mag and point_cloud at E = 49,152 edges of 3x3
+    patches (default.yaml's 512 pair slots x M = 96), and the class
+    surface's ops on 4,096 elements of each group. Bounds: a difference
+    relative to the output's largest entry of 1e-5 (both sides f32; the
+    card contracts into FMAs and has its own sin / cos / sqrt, so a few
+    ulps per op, and no tap lies near a gate); the group ops' O(1) values
+    2e-5 absolute (1e-4 through Sim3's 3x3 inverse). Also .backward()
+    through log at the identity must give finite gradients on the card."""
+    import torch
+    from dpvo_torch import lie, projective
+    from dpvo_torch.scripts._common import time_ms
+    t_phase = time.perf_counter()
+    worst = []
+
+    def held(what, a, b, bound, rel=True):
+        a, b = a.detach().double().cpu(), b.detach().double()
+        scale = b.abs().max().item() if rel else 1.0
+        d = (a - b).abs().max().item() / max(scale, 1e-30)
+        worst.append((what, d, bound))
+        check(bool(torch.isfinite(a).all()) and d <= bound,
+              f'phase 17 {what}: difference {d!r} over {bound}')
+
+    E, N, M = 49152, 36, 96
+    scene, scales = geometry_scene(E, N, M, seed=17)
+    for group in ('se3', 'sim3'):
+        args = list(scene)
+        if group == 'sim3':
+            args[0] = torch.cat([args[0], scales], dim=1)
+        cuda = [a.to(dev) for a in args]
+        x, v, (Ji, Jj, Jz) = projective.transform(*cuda, jacobian=True,
+                                                  group=group)
+        xr, vr, (Jir, Jjr, Jzr) = projective.transform(*args, jacobian=True,
+                                                       group=group)
+        check(bool(vr.all()) and torch.equal(v.cpu(), vr),
+              f'phase 17 {group}: validity differs or not every edge valid')
+        for what, a, b in (('coords', x, xr), ('Ji', Ji, Jir),
+                           ('Jj', Jj, Jjr), ('Jz', Jz, Jzr)):
+            held(f'transform {group} {what}', a, b, 1e-5)
+        ms = time_ms(lambda: projective.transform(*cuda, jacobian=True,
+                                                  group=group))
+        print(f'  transform({group}, jacobian=True) at E = {E:,}: '
+              f'{ms!r} ms on the card (one call alone)', flush=True)
+    cuda = [a.to(dev) for a in scene]
+    mag, val = projective.flow_mag(*cuda, beta=0.5)
+    magr, valr = projective.flow_mag(*scene, beta=0.5)
+    check(torch.equal(val.cpu(), valr), 'phase 17 flow_mag: validity differs')
+    held('flow_mag', mag, magr, 1e-5)
+    ix = torch.arange(N).repeat_interleave(M)
+    held('point_cloud', projective.point_cloud(cuda[0], cuda[1], cuda[2],
+                                               ix.to(dev)),
+         projective.point_cloud(scene[0], scene[1], scene[2], ix), 1e-5)
+
+    n = 4096
+    rng = np.random.RandomState(18)
+    for cls, key in ((lie.SO3, 1), (lie.RxSO3, 2), (lie.SE3, 3),
+                     (lie.Sim3, 4)):
+        d = cls.manifold_dim
+        bound = 1e-4 if cls is lie.Sim3 else 2e-5
+        A, B = (cls.Random(n, sigma=0.5, key=k, device=dev)
+                for k in (key, key + 10))
+        Ar, Br = (cls.Random(n, sigma=0.5, key=k, device='cpu')
+                  for k in (key, key + 10))
+        xi, X = (torch.from_numpy(rng.randn(n, d).astype(np.float32) * s)
+                 for s in (0.3, 1.0))
+        p3, p4 = (torch.from_numpy(rng.randn(n, w).astype(np.float32))
+                  for w in (3, 4))
+
+        def ops(A, B, xi, X, p3, p4):
+            out = dict(Random=A.data, mul=(A * B).data, inv=A.inv().data,
+                       log=A.log(), exp=cls.exp(xi).data,
+                       retr=A.retr(xi).data, matrix=A.matrix(),
+                       adj=A.adj(xi), adjT=A.adjT(X), Jinv=A.Jinv(xi),
+                       act=A * p3)
+            if cls is not lie.SO3:
+                out['act4'] = A * p4
+            return out
+
+        on = ops(A, B, *(t.to(dev) for t in (xi, X, p3, p4)))
+        ref = ops(Ar, Br, xi, X, p3, p4)
+        for k in ref:
+            held(f'{cls.__name__}.{k}', on[k], ref[k], bound, rel=False)
+        x = torch.zeros(n, d, device=dev, requires_grad=True)
+        (cls.exp(x).log().sum() + (cls.exp(x) * A).log().sum()).backward()
+        check(bool(torch.isfinite(x.grad).all()),
+              f'phase 17 {cls.__name__}: a gradient at the identity is not '
+              f'finite')
+    what, d, bound = max(worst, key=lambda w: w[1] / w[2])
+    print(f'  {len(worst)} outputs held, CUDA against the CPU; the largest '
+          f'differences (relative to the output\'s largest entry for '
+          f'projective.py, absolute for the group ops):', flush=True)
+    for w, dd, b in worst:
+        print(f'    {w}: {dd!r} (bound {b})')
+    print(f'  closest to its bound: {what} {d!r} of {bound}; {smi}')
+    print(f'  phase 17: {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
 def check_items(where, items, E, cap, max_pos):
     """A target-tile chain's work items as it made them (corr_probes.
     pair_work, slab_work): each of 1 .. cap edges, together every edge
@@ -2500,8 +2631,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument('--phases', default=None,
                     help='for development: run the environment, the build '
-                         'and these of phases 14 and 16 (e.g. 14,16), then '
-                         'stop without the result lines')
+                         'and these of phases 14, 16 and 17 (e.g. 14,16), '
+                         'then stop without the result lines')
     only = ap.parse_args(argv).phases
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2511,14 +2642,14 @@ def main(argv=None):
     dev = torch.device('cuda')
     name = torch.cuda.get_device_name(0)
 
-    print('[1/16] environment', flush=True)
+    print('[1/17] environment', flush=True)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f'  torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.device_count()} device(s): {name}')
 
-    print('[2/16] build', flush=True)
+    print('[2/17] build', flush=True)
     from concurrent.futures import ThreadPoolExecutor
     from dpvo_torch.ops import corr_fused, corr_grad, corr_onepass, \
         corr_probes
@@ -2596,18 +2727,21 @@ def main(argv=None):
 
     if only is not None:
         for n in sorted(int(x) for x in only.split(',')):
-            check(n in (14, 16), f'--phases takes 14 and 16, not {n}')
-            if n == 14:
-                print('[14/16] classic loop closure on the card', flush=True)
+            check(n in (14, 16, 17), f'--phases takes 14, 16 and 17, not {n}')
+            if n == 17:
+                print('[17/17] the geometry library on the card', flush=True)
+                geometry_on_card(dev, smi)
+            elif n == 14:
+                print('[14/17] classic loop closure on the card', flush=True)
                 classic_on_card(dev, smi)
             else:
-                print('[16/16] training and evaluation entry points on the '
+                print('[16/17] training and evaluation entry points on the '
                       'card', flush=True)
                 train_eval_on_card(dev, smi)
         print(f'{smi}\nchip_smoke: phases {only} only; no result lines')
         return 0
 
-    print('[3/16] kernels vs plain', flush=True)
+    print('[3/17] kernels vs plain', flush=True)
     err, k_ms, p_ms, b1, staged = kernel_vs_plain(
         dev, E=49152, F=36, H1=120, W1=160, Ng=36 * 96, nv=40013, seed=0,
         timed=True)
@@ -2622,7 +2756,7 @@ def main(argv=None):
           f'{streamed / 1e9!r} GB ({streamed / k2[1] / 1e9!r} TB/s)',
           flush=True)
 
-    print('[4/16] DeviceVO main path', flush=True)
+    print('[4/17] DeviceVO main path', flush=True)
     py_ms, launch_us, objs = host_pace(dev)
     print(f'  host pace: Python loop {py_ms!r} ms, {launch_us!r} us per '
           f'launch, {objs} objects tracked by gc', flush=True)
@@ -2630,7 +2764,7 @@ def main(argv=None):
     check(dv['corr_onepass'] >= dv_iters, f'K1 launched '
           f'{dv["corr_onepass"]} times, expected >= {dv_iters}')
 
-    print('[5/16] hybrid main path', flush=True)
+    print('[5/17] hybrid main path', flush=True)
     hy, hy_iters, hy_stats = main_path(dev, 'default.yaml + GRADIENT_BIAS',
                                        'fused_k',
                                        CENTROID_SEL_STRAT='GRADIENT_BIAS')
@@ -2653,7 +2787,7 @@ def main(argv=None):
               f'{st["busy"]!r}, idle {st["idle"]!r}; correlation ms/frame: '
               f'{corr}', flush=True)
 
-    print('[6/16] DeviceVO with fused_k', flush=True)
+    print('[6/17] DeviceVO with fused_k', flush=True)
     dk, dk_iters, _ = main_path(dev, 'default.yaml', 'fused_k', n_frames=12,
                                 measure=False)
     check(dk['corr_planes'] >= dk_iters and
@@ -2661,38 +2795,41 @@ def main(argv=None):
           f'K2 / K3 launched {dk}, expected >= {dk_iters} / '
           f'{2 * dk_iters}')
 
-    print('[7/16] CUDA vs CPU', flush=True)
+    print('[7/17] CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev)
 
-    print('[8/16] correlation probes', flush=True)
+    print('[8/17] correlation probes', flush=True)
     probe_entries = probes()
 
-    print('[9/16] DeviceVO on yuv420, per frame and chunked', flush=True)
+    print('[9/17] DeviceVO on yuv420, per frame and chunked', flush=True)
     ingest_and_chunks(dev, smi, dv_stats)
 
-    print('[10/16] HybridVO on yuv420, CUDA vs CPU', flush=True)
+    print('[10/17] HybridVO on yuv420, CUDA vs CPU', flush=True)
     small_cpu_vs_cuda(dev, runs=(
         ('HybridVO', (256, 320), 'onepass', dict(GB, UPLOAD_FORMAT='yuv420'),
          ('corr_onepass',)),), precisions=(True,))
 
-    print('[11/16] accuracy on the card', flush=True)
+    print('[11/17] accuracy on the card', flush=True)
     accuracy_on_card(dev)
 
-    print('[12/16] DPV-SLAM (learned loop closure) on the card', flush=True)
+    print('[12/17] DPV-SLAM (learned loop closure) on the card', flush=True)
     dpv_slam_on_card(dev, smi)
 
-    print('[13/16] training on the card', flush=True)
+    print('[13/17] training on the card', flush=True)
     backward_entry = train_on_card(dev, smi)
 
-    print('[14/16] classic loop closure on the card', flush=True)
+    print('[14/17] classic loop closure on the card', flush=True)
     classic_on_card(dev, smi)
 
-    print('[15/16] entry points on the card', flush=True)
+    print('[15/17] entry points on the card', flush=True)
     entry_points_on_card(dev, smi, dv_stats, ho_stats)
 
-    print('[16/16] training and evaluation entry points on the card',
+    print('[16/17] training and evaluation entry points on the card',
           flush=True)
     train_eval_on_card(dev, smi)
+
+    print('[17/17] the geometry library on the card', flush=True)
+    geometry_on_card(dev, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return dict(name=name, route='cuda', source=source,

@@ -8,8 +8,12 @@ against; this package imports torch and never jax.
 
 Layer map (module names mirror dpvo_tpu/):
   config.py             CfgNode + defaults
-  lie.py                SE3 / RxSO3 / Sim3 / quaternion ops on tensors
-  ops/                  patchify, segment scatter, correlation: plain
+  lie.py            L0  Lie groups SO3 / RxSO3 / SE3 / Sim3 on tensors:
+                        the functional ops and the lietorch-style classes
+                        (SO3, RxSO3, SE3, Sim3, stack)
+  projective.py     L1  iproj / proj / transform with analytic SE3 and
+                        Sim3 Jacobians, point_cloud, flow_mag
+  ops/              L2  patchify, segment scatter, correlation: plain
                         PyTorch in corr.py and beside each kernel; the
                         hand-written sm_90a kernels behind corr_onepass.py
                         (K1) and corr_fused.py (K2 planes, K3 select),
@@ -38,7 +42,8 @@ Layer map (module names mirror dpvo_tpu/):
   plot_utils.py         trajectory plot, ply and COLMAP writers
   stream.py             image-directory and video readers (a reader
                         process feeds the runtime through a queue)
-  utils.py              Timer (synchronizes a CUDA device)
+  utils/                Timer (timing.py, synchronizes a CUDA device);
+                        coordinate grids and set_depth (grids.py)
   data_readers/         synthetic scenes with exact ground truth (numpy)
   demo.py, evaluate_euroc.py, evaluate_tum.py, evaluate_kitti.py,
   evaluate_icl_nuim.py, evaluate_synthetic.py

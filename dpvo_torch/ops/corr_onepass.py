@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from . import corr as _plain
+from .corr import corr_two_level as _plain_two_level
 from . import cuda_lib
 
 RADIUS = 3
@@ -160,8 +160,8 @@ def corr_two_level(gmap, fmap1, fmap2, coords, kk, jj, nv=None,
     global launches
     dev = coords.device
     if dev.type == 'cpu':
-        return _plain.corr_two_level(gmap, fmap1, fmap2, coords, kk, jj,
-                                     nv=nv, out_dtype=out_dtype)
+        return _plain_two_level(gmap, fmap1, fmap2, coords, kk, jj, nv=nv,
+                                out_dtype=out_dtype)
     check_inputs(gmap, fmap1, fmap2, coords, kk, jj)
     E = coords.shape[0]
     if out_dtype not in (torch.bfloat16, torch.float32):

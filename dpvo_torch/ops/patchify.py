@@ -26,12 +26,15 @@ def _gather_window(fmap, coords, radius):
     return win.masked_fill(~valid[..., None], 0)
 
 
-def extract_patches(fmap, coords, radius):
-    """(M, P, P, C) bilinear patches, P = 2R+1, at float centroids.
+def extract_patches(fmap, coords, radius, mode='bilinear'):
+    """(M, P, P, C) bilinear patches, P = 2R+1, at float centroids; any
+    other mode returns the raw (M, D, D, C) integer windows, D = 2R+2.
 
     fmap (H, W, C); coords (M, 2) float [x, y]. The weights are cast to the
     map's dtype before blending, as dpvo_tpu does."""
     win = _gather_window(fmap, coords, radius)
+    if mode != 'bilinear':
+        return win
     frac = coords - torch.floor(coords)
     dx = frac[:, 0][:, None, None, None].to(win.dtype)
     dy = frac[:, 1][:, None, None, None].to(win.dtype)
@@ -49,3 +52,8 @@ def avg_pool2d(x, k):
     *lead, H, W, C = x.shape
     x = x.reshape(tuple(lead) + (H // k, k, W // k, k, C))
     return x.mean(dim=(-4, -2))
+
+
+def pyramidify(fmap, lvls=(1, 4)):
+    """Average-pool pyramid (reference dpvo/utils.py:65-74), channels-last."""
+    return [avg_pool2d(fmap, k) for k in lvls]

@@ -1,4 +1,5 @@
-"""Segment sum / softmax over dense group ids (torch_scatter replacements).
+"""Segment sum / mean / softmax over dense group ids (torch_scatter
+replacements).
 
 Port of dpvo_tpu/ops/scatter.py with `index_add_` and
 `scatter_reduce(amax)`; group ids are dense and precomputed by the caller.
@@ -12,6 +13,14 @@ def segment_sum(x, ids, num_segments):
     out = torch.zeros((num_segments,) + x.shape[1:], dtype=x.dtype,
                       device=x.device)
     return out.index_add_(0, ids, x)
+
+
+def segment_mean(x, ids, num_segments):
+    """Per-segment mean over rows; empty segments hold 0."""
+    c = segment_sum(torch.ones(x.shape[:1], dtype=x.dtype, device=x.device),
+                    ids, num_segments)
+    return segment_sum(x, ids, num_segments) / \
+        torch.clamp(c, min=1.0)[(...,) + (None,) * (x.dim() - 1)]
 
 
 def segment_max(x, ids, num_segments):

@@ -538,6 +538,12 @@ def unpack_frame(buf, *, ht, wd, M, upload='rgb'):
     return image, tail.view(torch.float32).view(M, 4)
 
 
+def vo_frame_packed(network, st, image, aux, **kw):
+    """vo_frame with the (M, 4) aux packed [x, y, depth seed, tstamp]
+    (dpvo_tpu's vo_frame_packed): vo_frame itself takes that layout."""
+    return vo_frame(network, st, image, aux, **kw)
+
+
 def vo_frame_packed1(network, st, buf, *, ht, wd, upload='rgb', **kw):
     """vo_frame from one flat uint8 upload (dpvo_tpu's vo_frame_packed1),
     laid out as unpack_frame reads it."""

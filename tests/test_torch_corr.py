@@ -6,6 +6,8 @@ nv gating and borders, and ops/corr.py for the M = 48 row layout.
 Tolerance: both sides take bf16 maps to f32 and sum the same f32 products
 in another order (the interpret kernel through f32 planes), so the bound is
 1e-4 of the output scale; exact zeros past nv and outside the image."""
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,7 +110,8 @@ def test_m48_rows_match_xla():
 
 def test_single_level_matches_xla_f32(monkeypatch):
     """f32 maps, several edge chunks."""
-    from dpvo_torch.ops import corr as corr_mod
+    # the module: the package's name `corr` is the function, as in dpvo_tpu
+    corr_mod = importlib.import_module('dpvo_torch.ops.corr')
     monkeypatch.setattr(corr_mod, '_CHUNK', 16)
     gmap, f1, _, coords, kk, jj = make_case(E=40, seed=7)
     ref = np.asarray(corr_xla(jnp.asarray(gmap), jnp.asarray(f1),

@@ -67,7 +67,7 @@ Phases (any failure raises, so the exit code is non-zero):
   9. DeviceVO on UPLOAD_FORMAT=yuv420 as in phase 4 (I420 planes packed
      on the host, turned into RGB on the device), per frame and through
      track_frames in chunks of 8: K1 must cover every update iteration of
-     both, chunked poses within 1e-3 of per-frame ones, the first 16
+     both, chunked poses within 1e-3 of per-frame ones, the first 10
      frames on CUDA and on the CPU within 1e-2; the host's rgb_to_i420
      time at 640x480; wall, device busy, idle share and bytes uploaded per
      frame of both, beside phase 4's rgb run, with the card's name and
@@ -190,11 +190,29 @@ Phases (any failure raises, so the exit code is non-zero):
      patches, each group's class ops on 4,096 Random elements, finite
      gradients at the identity; every difference printed beside its
      bound, then one transform call's time and the phase's seconds.
-With --phases 14,16,17 (development; any of them) the script runs phases
-1, 2 and those named, then stops without the result lines.
-The last two lines of stdout are a JSON line with the kernels' numbers and
-{"ok": true, "device": {...}}.
+ 18. HybridVO with mirrors in flight (MIRROR_PIPELINE=2): (a) CUDA against
+     the CPU at 256x320 as in phase 7 (onepass and fused_k, f32 within
+     1e-3, bf16 within 1e-2), the same keyframe count on both, K1 (or K2
+     once and K3 twice) on every update iteration; (b) phase 5's run with
+     onepass (640x480, default.yaml + GRADIENT_BIAS, 40 frames) at k = 1
+     and k = 2 in turns (ABBA), as configured and again with every
+     keyframe kept (KEYFRAME_THRESH -1, where both k do the same work),
+     beside the card's name and power limit:
+     wall per frame over frames 10-29 as one segment (no synchronize per
+     frame), device busy and idle over frames 30-39 (profiler), the
+     host-device syncs per frame that torch.cuda.set_sync_debug_mode
+     reports there with their call sites, and the read-back event waits
+     per frame; K1 on every update iteration; (c) phase 12's LC runtime
+     on CUDA against the CPU at k = 2, where no global BA on the card may
+     sync or wait on a read-back and each one during the frames leaves
+     its pose / depth read-back queued.
+With --phases 14,16,17,18 (development; any of them) the script runs
+phases 1, 2 and those named, then stops without the result lines.
+Before the result lines, a summary gives each phase's seconds and
+headline numbers on one line. The last two lines of stdout are a JSON
+line with the kernels' numbers and {"ok": true, "device": {...}}.
 """
+import collections
 import itertools
 import json
 import os
@@ -207,6 +225,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+N_PHASES = 18
 CONFIG = os.path.join(REPO, 'config', 'default.yaml')
 WEIGHTS = os.path.join(REPO, 'artifacts', 'micro_vonet.npz')
 
@@ -214,6 +233,67 @@ WEIGHTS = os.path.join(REPO, 'artifacts', 'micro_vonet.npz')
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f'check failed: {msg}')
+
+
+# the summary printed before the result lines: [phase, title, start time,
+# headline numbers]; the output's tail is all a caller may see of a run
+SUMMARY = []
+
+
+def begin(n, title):
+    """Start phase n: print its heading, open its summary line."""
+    print(f'[{n}/{N_PHASES}] {title}', flush=True)
+    SUMMARY.append([n, title, time.perf_counter(), []])
+
+
+def note(text):
+    """A headline number of the current phase, for the summary."""
+    if SUMMARY:
+        SUMMARY[-1][3].append(text)
+
+
+def print_summary():
+    """One short line per phase: its seconds and headline numbers."""
+    print('summary:')
+    for i, (n, title, t0, notes) in enumerate(SUMMARY):
+        t1 = SUMMARY[i + 1][2] if i + 1 < len(SUMMARY) else \
+            time.perf_counter()
+        print(f'  [{n}] {title} ({t1 - t0:.1f} s): ' + '; '.join(notes),
+              flush=True)
+
+
+class SyncCounter:
+    """The host-device synchronizations made inside `with` blocks, as
+    torch.cuda.set_sync_debug_mode('warn') reports them: a blocking copy
+    (.cpu(), a host-to-device copy from pageable memory), .item(), float()
+    or bool() of a device value, a mask index, a synchronize. A wait on a
+    CUDA event is not one of them. Counts them (n) and their call sites
+    (sites: the Python file:line that made each)."""
+    MSG = 'called a synchronizing CUDA operation'
+
+    def __init__(self):
+        self.n = 0
+        self.sites = collections.Counter()
+
+    def __enter__(self):
+        import torch
+        import warnings
+        self._catch = warnings.catch_warnings(record=True)
+        self._log = self._catch.__enter__()
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode(0)
+        self._catch.__exit__(*exc)
+        for w in self._log:
+            if self.MSG in str(w.message):
+                self.n += 1
+                self.sites[f'{os.path.relpath(w.filename, REPO)}:'
+                           f'{w.lineno}'] += 1
+        return False
 
 
 def synthetic_frames(n, H, W, seed):
@@ -656,7 +736,9 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, chunk=None,
         clr = slam.colors()
         check(clr.dtype == np.uint8 and clr.shape == (slam.n, slam.M, 3),
               f'colors() {clr.dtype} {clr.shape}')
+    counts = ', '.join(f'{k} {v}' for k, v in launches.items() if v)
     if not measure:
+        note(f'{label} {corr_impl}: n = {slam.n}, launches {counts}')
         return launches, expected, stats
 
     # the calls from frame 10 to the trace start run without the profiler,
@@ -689,6 +771,9 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, chunk=None,
     else:
         print('  device busy per frame: not measured (no device events in '
               'the profiler trace)', flush=True)
+    note(f'{label} {corr_impl}{f" chunks of {chunk}" if chunk else ""}: '
+         f'wall {wall_ms:.4g} ms/frame, busy {stats["busy"] or 0:.4g}, '
+         f'idle {stats["idle"] or 0:.3g}, launches {counts}')
     return launches, expected, stats
 
 
@@ -699,7 +784,8 @@ SMALL_RUNS = (('DeviceVO', (64, 96), 'onepass', {}, ('corr_onepass',)),
                ('corr_planes', 'corr_select')))
 
 
-def small_cpu_vs_cuda(dev, runs=SMALL_RUNS, precisions=(False, True)):
+def small_cpu_vs_cuda(dev, runs=SMALL_RUNS, precisions=(False, True),
+                      cover=False):
     """The runtimes on CUDA (kernels) and on the CPU (plain versions), f32,
     same frames and seed: the poses must agree, and the CUDA run must have
     launched its correlation kernels. DeviceVO at 64x96 (K1 vs ops/corr.py;
@@ -709,7 +795,11 @@ def small_cpu_vs_cuda(dev, runs=SMALL_RUNS, precisions=(False, True)):
     their plain versions; the planes may round to bf16 one step apart where
     the f32 sums differ in their last bits), bound 1e-3 as well. Each
     again in bf16 (MIXED_PRECISION), bound 1e-2: the network and the
-    correlation maps in bf16 on both sides, with sums in another order."""
+    correlation maps in bf16 on both sides, with sums in another order.
+    With cover, both runs must also end with the same keyframe count, and
+    the CUDA run must have launched K1, or K2 once and K3 twice, per
+    update iteration (the motion probe is forced: 12 bootstrap updates,
+    one per tracked frame, 12 in terminate)."""
     from dpvo_torch.config import cfg as base_cfg
 
     for (label, (H, W), impl, extra, kernels), mixed in \
@@ -724,26 +814,41 @@ def small_cpu_vs_cuda(dev, runs=SMALL_RUNS, precisions=(False, True)):
             cfg[k] = v
         frames = synthetic_frames(16, H, W, seed=1)
         intr = np.array([W * 0.625, W * 0.625, W / 2, H / 2], np.float32)
-        out = []
+        out, kf = [], []
         for d in (dev, 'cpu'):
             slam = make_slam(cfg, H, W, d, impl)
             reset_launches()
             for t, img in enumerate(frames):
                 slam(t, img, intr)
             out.append(slam.terminate()[0])
+            kf.append(slam.n)
             if d == dev:
                 launches = read_launches()
         err = float(np.abs(out[0] - out[1]).max())
         prec = 'bf16' if mixed else 'f32'
         check(np.isfinite(out[0]).all(), f'{label}: poses not finite')
+        if cover:
+            iters = 12 + (len(frames) - 8) + 12
+            need = dict(corr_onepass=iters, corr_planes=iters,
+                        corr_select=2 * iters)
+            check(kf[0] == kf[1], f'{label} {impl} {prec}: keyframes '
+                  f'{kf[0]} on CUDA, {kf[1]} on the CPU')
+            check(all(launches[k] >= need[k] for k in kernels),
+                  f'{label} {impl} {prec} on CUDA: launches {launches}, '
+                  f'{iters} update iterations')
+        keys = ''.join(f' {k}={v}' for k, v in extra.items()
+                       if k != 'CENTROID_SEL_STRAT')
+        note(f'{label} {H}x{W} {impl} {prec}{keys} |CUDA - CPU| {err:.3g} '
+             f'(n = {kf[0]})')
         check(err <= tol, f'{label} {prec}: CUDA vs CPU poses differ by '
               f'{err}')
         check(all(launches[k] > 0 for k in kernels),
               f'{label} {impl} on CUDA: launches {launches}')
         up = f', {extra["UPLOAD_FORMAT"]}' if 'UPLOAD_FORMAT' in extra else ''
         print(f'  {label} {H}x{W} {prec}, 16 frames, {impl}{up}: max |pose '
-              f'CUDA - pose CPU| = {err!r} (bound {tol!r}; n = {slam.n}; '
-              f'CUDA launches {launches})', flush=True)
+              f'CUDA - pose CPU| = {err!r} (bound {tol!r}; keyframes n = '
+              f'{kf[0]} on CUDA, {kf[1]} on the CPU; CUDA launches '
+              f'{launches})', flush=True)
 
 
 def first_frames_poses(dev, n_frames=16, **overrides):
@@ -766,8 +871,9 @@ def ingest_and_chunks(dev, smi, rgb):
     """Phase 9: DeviceVO on yuv420 at 640x480, per frame and through
     track_frames in chunks of 8, each with K1 on every update iteration;
     chunked poses within 1e-3 of the per-frame ones (the same math frame
-    by frame); the first 16 frames on CUDA and on the CPU within 1e-2
-    (bf16, phase 7's bound). Prints wall, busy, idle and bytes uploaded
+    by frame); the first 10 frames (the bootstrap and two tracked frames;
+    the CPU's side takes ~7 s a frame at this size) on CUDA and on the CPU
+    within 1e-2 (bf16, phase 7's bound). Prints wall, busy, idle and bytes uploaded
     per frame beside phase 4's rgb run (`rgb`) of this call."""
     yuv = dict(UPLOAD_FORMAT='yuv420')
     runs = {'rgb per frame (phase 4)': rgb}
@@ -784,12 +890,13 @@ def ingest_and_chunks(dev, smi, rgb):
     print(f'  yuv420: max |pose chunked - pose per frame| = {err!r} '
           f'(bound 1e-3)', flush=True)
     t0 = time.perf_counter()
-    (n_gpu, p_gpu), (n_cpu, p_cpu) = (first_frames_poses(d, **yuv)
+    T = 10
+    (n_gpu, p_gpu), (n_cpu, p_cpu) = (first_frames_poses(d, T, **yuv)
                                       for d in (dev, 'cpu'))
     err = float(np.abs(p_gpu - p_cpu).max()) if n_gpu == n_cpu else np.inf
-    check(err <= 1e-2, f'yuv420 CUDA vs CPU over 16 frames: n {n_gpu} / '
+    check(err <= 1e-2, f'yuv420 CUDA vs CPU over {T} frames: n {n_gpu} / '
           f'{n_cpu}, poses differ by {err}')
-    print(f'  yuv420, first 16 frames, bf16: max |pose CUDA - pose CPU| = '
+    print(f'  yuv420, first {T} frames, bf16: max |pose CUDA - pose CPU| = '
           f'{err!r} over {n_gpu} keyframes (bound 1e-2; '
           f'{time.perf_counter() - t0:.1f} s)', flush=True)
     from dpvo_torch.runtime.i420 import rgb_to_i420
@@ -839,6 +946,8 @@ def accuracy_on_card(dev):
           f'{r["path"]})')
     print(f'  oracle keyframe removal: {removed} removals, ATE {r["ate"]!r} '
           f'(path {r["path"]!r}, bar {0.01 * r["path"]!r})', flush=True)
+    note(f'learned ATE trained {trained:.4g} / yuv420 {yuv:.4g} / random '
+         f'{rand:.4g} (path {path:.4g}); oracle removal ATE {r["ate"]:.3g}')
 
 
 LC_RUNS = (((96, 128), 'onepass', False, ('corr_onepass',)),
@@ -846,7 +955,22 @@ LC_RUNS = (((96, 128), 'onepass', False, ('corr_onepass',)),
            ((256, 320), 'fused_k', True, ('corr_planes', 'corr_select')))
 
 
-def lc_cpu_vs_cuda(dev):
+def watch_global_ba(slam):
+    """Wrap slam's global BA: each call counts the host-device syncs and
+    read-back waits made inside it (both must stay 0 at MIRROR_PIPELINE >
+    1). Returns the list of (syncs, waits, sites) per call."""
+    calls, run = [], slam._run_global_ba
+
+    def watched():
+        reads = slam._readback.reads
+        with SyncCounter() as sc:
+            run()
+        calls.append((sc.n, slam._readback.reads - reads, dict(sc.sites)))
+    slam._run_global_ba = watched
+    return calls
+
+
+def lc_cpu_vs_cuda(dev, pipeline=1):
     """The LC runtime on CUDA (kernels) and on the CPU (plain versions),
     same frames, seed and weights: accuracy.lc_cfg on make_sequence(950,
     T=40, loop=True) with artifacts/micro_vonet.npz, at 96x128 (onepass,
@@ -856,7 +980,10 @@ def lc_cpu_vs_cuda(dev):
     global-BA frames, the CUDA run's kernels launched. (On
     tests/test_loop_closure.py's noise frames, which accept any loop
     candidate, terminate's 12 global BAs amplify bf16 rounding: the CPU
-    tests hold that config on its discrete outputs.)"""
+    tests hold that config on its discrete outputs.) With pipeline > 1
+    (MIRROR_PIPELINE) no global BA on the card may block: no host-device
+    sync and no read-back wait inside any call, and each one during the
+    frames must leave its pose / depth read-back queued with its frame."""
     from dpvo_torch import accuracy as acc
     from dpvo_torch.data_readers.synthetic import make_sequence
     for (H, W), impl, mixed, kernels in LC_RUNS:
@@ -864,13 +991,24 @@ def lc_cpu_vs_cuda(dev):
         seq = make_sequence(950, T=40, H=H, W=W, step=0.12, loop=True)
         cfg = acc.lc_cfg(True)
         cfg.MIXED_PRECISION = mixed
+        cfg.MIRROR_PIPELINE = pipeline
         out = []
         for d in (dev, 'cpu'):
             slam = make_slam(cfg, H, W, d, impl)
+            if d == dev:
+                gba = watch_global_ba(slam)
+            queued = []
             reset_launches()
             for t, img in enumerate(seq['images']):
+                before = slam.ran_global_ba.copy()
+                tracking = slam.is_initialized
                 slam(t, img, seq['intrinsics'])
+                if tracking and (slam.ran_global_ba & ~before).any():
+                    queued.append(bool(slam._deferred) and
+                                  slam._deferred[-1][-1] is not None)
             slam._drain()
+            if d == dev:
+                queued_dev = queued
             kf = slam.st.poses[:slam.n].cpu().numpy().copy()
             out.append((kf, slam.terminate()[0], slam._n_loop_edges,
                         np.flatnonzero(slam.ran_global_ba).tolist(),
@@ -887,11 +1025,27 @@ def lc_cpu_vs_cuda(dev):
               f'frames), {err} (terminate)')
         check(all(launches[k] > 0 for k in kernels),
               f'LC {H}x{W} {impl} on CUDA: launches {launches}')
-        print(f'  LC {H}x{W} {prec}, 40 frames, {impl}: max |pose CUDA - '
-              f'pose CPU| = {err_kf!r} (keyframes after the frames), '
-              f'{err!r} (terminate) (bound {tol!r}); {lg} loop edges and '
-              f'global BA at n = {gg} on both; CUDA launches {launches}',
-              flush=True)
+        print(f'  LC {H}x{W} {prec}, 40 frames, {impl}, MIRROR_PIPELINE='
+              f'{pipeline}: max |pose CUDA - pose CPU| = {err_kf!r} '
+              f'(keyframes after the frames), {err!r} (terminate) (bound '
+              f'{tol!r}); {lg} loop edges and global BA at n = {gg} on both; '
+              f'CUDA launches {launches}', flush=True)
+        note(f'LC {H}x{W} {impl} {prec} k={pipeline} |CUDA - CPU| '
+             f'{err:.3g}')
+        if pipeline > 1:
+            queued = queued_dev
+            syncs = sum(c[0] for c in gba)
+            waits = sum(c[1] for c in gba)
+            print(f'  global BA on the card: {len(gba)} calls ({len(queued)} '
+                  f'during the frames, each read-back queued: {queued}); '
+                  f'syncs inside them {syncs}, read-back waits {waits}; '
+                  f'sites {[c[2] for c in gba if c[2]]}', flush=True)
+            check(len(queued) >= 1 and all(queued) and syncs == 0 and
+                  waits == 0, f'LC {H}x{W} {impl} {prec}: a global BA '
+                  f'blocked: {len(queued)} frames, queued {queued}, syncs '
+                  f'{syncs}, waits {waits}')
+            note(f'{len(gba)} global BAs, {syncs} syncs / {waits} waits in '
+                 f'them')
 
 
 def lc_gates_on_card(dev):
@@ -1376,6 +1530,8 @@ def train_reference_size(dev, smi, n_full=3):
           f'(profiler, the last step), idle share {1.0 - busy / wall!r}; '
           f'traced step {walls[-1]!r} ms; peak device memory '
           f'(max_memory_allocated) {peak / 2 ** 30!r} GiB', flush=True)
+    note(f'train step wall {wall:.5g} ms, busy {busy:.5g}, '
+         f'{peak / 2 ** 30:.3g} GiB')
     for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f'    {v:9.3f} ms/step  {k[:100]}')
     bw = {re.search(r'bw_\w+', k).group(0): v for k, v in by_name.items()
@@ -1578,6 +1734,7 @@ def classic_on_card(dev, smi):
           f'launches {launches["corr_onepass"]} of {iters} update '
           f'iterations', flush=True)
     print_close_calls(calls)
+    note(f'(a) {len(calls["close"])} candidates, lc_count {lc.lc_count}')
     closes = [c['ms'] for c in calls['close']]
     print(f'  {smi}: classic LC wall {st["wall"]!r} ms/frame, device busy '
           f'{st["busy"]!r} ms/frame, idle share {st["idle"]!r}; close_loop '
@@ -1596,6 +1753,7 @@ def classic_on_card(dev, smi):
     print(f'  (b) oracle, f32, 36 frames at 128x192: lc_count '
           f'{r["lc_count"]}, loops {r["loops"]}, ATE {r["ate"]!r} (path '
           f'{r["path"]!r}, bar {0.05 * r["path"]!r})', flush=True)
+    note(f'(b) oracle lc_count {r["lc_count"]}, ATE {r["ate"]:.3g}')
     print_close_calls(calls)
     check(r['lc_count'] >= 1 and r['ate'] < 0.05 * r['path'],
           f'(b): lc_count {r["lc_count"]}, ATE {r["ate"]}, path {r["path"]}')
@@ -1831,6 +1989,7 @@ def entry_points_on_card(dev, smi, dv_stats, ho_stats, H=480, W=640, T=40,
                   f'{len(push_ms)} viewer pushes (every 3rd keyframe count), '
                   f'{float(np.median(push_ms)) if push_ms else 0.0!r} ms '
                   f'each (median), {sum(push_ms)!r} ms in all', flush=True)
+            note(f'demo (a) {a_ms:.4g} ms/frame, --viz (b) {b_ms:.4g}')
             # DeviceVO's own viz branch (built directly: the DPVO
             # constructor sends viz to HybridVO), same frames
             from dpvo_torch.config import cfg as base_cfg
@@ -2376,6 +2535,8 @@ def train_eval_on_card(dev, smi, H=480, W=640, n_frames=15, M=80, crop=None,
                   f'the steps)', flush=True)
             for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
                 print(f'    {v:9.3f} ms/step  {k[:100]}')
+            note(f'(a) train CLI step wall {wall:.5g} ms, busy '
+                 f'{busy or 0:.5g}')
 
             # (b) the same step over torch.distributed, one rank
             dp_one_rank(dev, root, n_frames=n_frames, M=M, crop=crop)
@@ -2386,6 +2547,7 @@ def train_eval_on_card(dev, smi, H=480, W=640, n_frames=15, M=80, crop=None,
                   f'frames at {H}x{W}, default.yaml, micro VONet, probe '
                   f'forced: {res}; wall {wall!r} ms per frame (whole run, '
                   f'runtime builds included); K1 launches {k1}', flush=True)
+            note(f'(c) evaluate_tartan {wall:.4g} ms/frame')
             check(all(np.isfinite(v) for v in res.values()) and k1 >= 2 * (
                 12 + (n_val - 8) + 12), f'(c) {res}, K1 launches {k1}')
 
@@ -2529,7 +2691,154 @@ def geometry_on_card(dev, smi):
     for w, dd, b in worst:
         print(f'    {w}: {dd!r} (bound {b})')
     print(f'  closest to its bound: {what} {d!r} of {bound}; {smi}')
+    note(f'{len(worst)} outputs held; closest {what} {d:.3g} of {bound}')
     print(f'  phase 17: {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 18: HybridVO with mirrors in flight (MIRROR_PIPELINE >= 2)
+# --------------------------------------------------------------------------
+
+def pipeline_run(dev, k, frames, intr, warm=10, timed=20, traced=10,
+                 **overrides):
+    """HybridVO at 640x480 (default.yaml + GRADIENT_BIAS, the full-width
+    VONet, onepass; + overrides) with MIRROR_PIPELINE = k over `frames` +
+    terminate():
+    the calls of frames warm .. warm + timed - 1 as one segment on the host
+    clock, from a synchronize to a synchronize (no sync per frame, so
+    mirrors stay in flight), then `traced` frames under the profiler and
+    the sync counter. Returns dict(wall, busy, idle (ms per frame, share),
+    syncs, waits (per traced frame), sites, n (keyframes), launches,
+    poses)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dpvo_torch.config import cfg as base_cfg
+    H, W = frames[0].shape[:2]
+    cfg = base_cfg.clone()
+    cfg.merge_from_file(CONFIG)
+    cfg.CENTROID_SEL_STRAT = 'GRADIENT_BIAS'
+    cfg.MIRROR_PIPELINE = k
+    for key, v in overrides.items():
+        cfg[key] = v
+    slam = make_slam(cfg, H, W, dev, 'onepass')
+    reset_launches()
+    for t in range(warm):
+        slam(t, frames[t], intr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(warm, warm + timed):
+        slam(t, frames[t], intr)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / timed
+    reads = slam._readback.reads
+    sc = SyncCounter()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with sc:
+                for t in range(warm + timed, warm + timed + traced):
+                    slam(t, frames[t], intr)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(f'{tmp}/trace.json')
+        busy, _, n_ops = device_time(f'{tmp}/trace.json')
+    waits = slam._readback.reads - reads
+    for t in range(warm + timed + traced, len(frames)):
+        slam(t, frames[t], intr)
+    poses, _ = slam.terminate()
+    torch.cuda.synchronize()
+    busy = busy / traced if busy > 0 else None
+    return dict(wall=wall, busy=busy,
+                idle=None if busy is None else 1.0 - busy / wall,
+                syncs=sc.n / traced, waits=waits / traced, sites=sc.sites,
+                ops=n_ops / traced, n=slam.n, edges=len(slam.ii),
+                launches=read_launches(), poses=poses)
+
+
+def pipeline_turns(dev, smi, label, n_frames=40, order=(1, 2, 2, 1),
+                   H=480, W=640, **overrides):
+    """Phase 18 (b): pipeline_run at k = 1 and 2 in turns (ABBA) on phase
+    4's frames; K1 on every update iteration, finite unit poses; prints
+    each run's wall, busy and idle per frame, its syncs and event waits
+    per traced frame, the sync sites, and the medians per k. H, W shrink
+    it for a rehearsal on the CPU."""
+    frames = synthetic_frames(n_frames, H, W, seed=0)
+    intr = np.array([460.0, 460.0, W / 2, H / 2], np.float32)
+    iters = 12 + (n_frames - 8) + 12
+    res = {1: [], 2: []}
+    print(f'  (b) {label}, {smi}: HybridVO {W}x{H}, default.yaml + '
+          f'GRADIENT_BIAS{"".join(f" + {k}={v}" for k, v in overrides.items())}'
+          f', onepass, {n_frames} frames; wall over frames 10-29 as one '
+          f'segment, busy / syncs / waits over frames 30-39; runs in turns '
+          f'k = {list(order)}', flush=True)
+    for k in order:
+        r = pipeline_run(dev, k, frames, intr, **overrides)
+        check(r['launches']['corr_onepass'] >= iters,
+              f'(b) k={k}: K1 launched {r["launches"]["corr_onepass"]} '
+              f'times, expected >= {iters}')
+        check(np.isfinite(r['poses']).all() and np.allclose(
+            np.linalg.norm(r['poses'][:, 3:], axis=1), 1.0, atol=1e-3),
+            f'(b) k={k}: poses not finite or not unit')
+        res[k].append(r)
+        print(f'  (b) MIRROR_PIPELINE={k}: wall {r["wall"]!r} ms/frame, '
+              f'busy {r["busy"]!r} ms/frame, idle {r["idle"]!r}, '
+              f'{r["ops"]!r} device ops/frame; syncs (sync debug mode) '
+              f'{r["syncs"]!r} and read-back event waits {r["waits"]!r} '
+              f'per frame; keyframes {r["n"]}, live edges {r["edges"]} at '
+              f'the end; K1 launches {r["launches"]["corr_onepass"]} (>= '
+              f'{iters})', flush=True)
+    for k in (1, 2):
+        sites = sum((r['sites'] for r in res[k]), collections.Counter())
+        print(f'  (b) k={k} sync sites over its {len(res[k])} runs x 10 '
+              f'frames: {dict(sites.most_common())}', flush=True)
+    med = {k: {m: float(np.median([r[m] for r in res[k]]))
+               for m in ('wall', 'busy', 'idle', 'syncs', 'waits')}
+           for k in (1, 2)}
+    print(f'  (b) {label}, {smi}: medians k=1 {med[1]}, k=2 {med[2]}; wall '
+          f'k=2 / k=1 {med[2]["wall"] / med[1]["wall"]!r}', flush=True)
+    for k in (1, 2):
+        note(f'{label} k={k}: n = {res[k][0]["n"]}, wall '
+             f'{med[k]["wall"]:.4g} ms/frame, busy {med[k]["busy"]:.4g}, '
+             f'idle {med[k]["idle"]:.3g}, syncs {med[k]["syncs"]:.3g} + '
+             f'waits {med[k]["waits"]:.3g}/frame')
+    return res
+
+
+def pipeline_on_card(dev, smi):
+    """Phase 18 (see the module docstring)."""
+    import torch
+    t_phase = time.perf_counter()
+    sc = SyncCounter()
+    with sc:
+        torch.zeros(1, device=dev).item()
+    check(sc.n == 1, f'the sync counter saw {sc.n} syncs in one .item()')
+    pipe = dict(GB, MIRROR_PIPELINE=2)
+    parts = []
+
+    def part(name, t0):
+        parts.append(f'{name} {time.perf_counter() - t0:.1f} s')
+
+    t0 = time.perf_counter()
+    print('  (a) HybridVO at MIRROR_PIPELINE=2, CUDA vs CPU:', flush=True)
+    small_cpu_vs_cuda(dev, cover=True, runs=(
+        ('HybridVO', (256, 320), 'onepass', pipe, ('corr_onepass',)),
+        ('HybridVO', (256, 320), 'fused_k', pipe,
+         ('corr_planes', 'corr_select'))))
+    part('(a)', t0)
+    # as configured (keyframes removed), then with every keyframe kept,
+    # where k = 1 and k = 2 do the same work
+    for label, kw in (('default', {}),
+                      ('keyframes kept', dict(KEYFRAME_THRESH=-1.0))):
+        t0 = time.perf_counter()
+        pipeline_turns(dev, smi, label, **kw)
+        part(f'(b) {label}', t0)
+    t0 = time.perf_counter()
+    print('  (c) the LC runtime at MIRROR_PIPELINE=2, CUDA vs CPU:',
+          flush=True)
+    lc_cpu_vs_cuda(dev, pipeline=2)
+    part('(c)', t0)
+    print(f'  phase 18: {time.perf_counter() - t_phase:.1f} s '
+          f'({", ".join(parts)})', flush=True)
+    note(', '.join(parts))
 
 
 def check_items(where, items, E, cap, max_pos):
@@ -2631,8 +2940,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument('--phases', default=None,
                     help='for development: run the environment, the build '
-                         'and these of phases 14, 16 and 17 (e.g. 14,16), '
-                         'then stop without the result lines')
+                         'and these of phases 14, 16, 17 and 18 (e.g. '
+                         '14,16), then stop without the result lines')
     only = ap.parse_args(argv).phases
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2642,14 +2951,15 @@ def main(argv=None):
     dev = torch.device('cuda')
     name = torch.cuda.get_device_name(0)
 
-    print('[1/17] environment', flush=True)
+    begin(1, 'environment')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f'  torch {torch.__version__}, CUDA {torch.version.cuda}, '
           f'{torch.cuda.device_count()} device(s): {name}')
+    note(f'{smi}; torch {torch.__version__}')
 
-    print('[2/17] build', flush=True)
+    begin(2, 'build')
     from concurrent.futures import ThreadPoolExecutor
     from dpvo_torch.ops import corr_fused, corr_grad, corr_onepass, \
         corr_probes
@@ -2660,6 +2970,7 @@ def main(argv=None):
         sos = [f.result() for f in [ex.submit(b) for b in builds]]
     print(f'  {", ".join(so.name for so in sos)} in '
           f'{time.perf_counter() - t0:.1f} s')
+    note(f'{len(sos)} sources built in {time.perf_counter() - t0:.1f} s')
     for so in sos:
         for line in so.with_suffix('.log').read_text().splitlines():
             if 'Compiling entry' in line or 'registers' in line \
@@ -2726,22 +3037,23 @@ def main(argv=None):
               f'{sh["warps"]} consumer warps')
 
     if only is not None:
+        dev_phases = {
+            14: ('classic loop closure on the card', classic_on_card),
+            16: ('training and evaluation entry points on the card',
+                 train_eval_on_card),
+            17: ('the geometry library on the card', geometry_on_card),
+            18: ('HybridVO with mirrors in flight on the card',
+                 pipeline_on_card)}
         for n in sorted(int(x) for x in only.split(',')):
-            check(n in (14, 16, 17), f'--phases takes 14, 16 and 17, not {n}')
-            if n == 17:
-                print('[17/17] the geometry library on the card', flush=True)
-                geometry_on_card(dev, smi)
-            elif n == 14:
-                print('[14/17] classic loop closure on the card', flush=True)
-                classic_on_card(dev, smi)
-            else:
-                print('[16/17] training and evaluation entry points on the '
-                      'card', flush=True)
-                train_eval_on_card(dev, smi)
+            check(n in dev_phases, f'--phases takes 14, 16, 17 and 18, not '
+                  f'{n}')
+            begin(n, dev_phases[n][0])
+            dev_phases[n][1](dev, smi)
+        print_summary()
         print(f'{smi}\nchip_smoke: phases {only} only; no result lines')
         return 0
 
-    print('[3/17] kernels vs plain', flush=True)
+    begin(3, 'kernels vs plain')
     err, k_ms, p_ms, b1, staged = kernel_vs_plain(
         dev, E=49152, F=36, H1=120, W1=160, Ng=36 * 96, nv=40013, seed=0,
         timed=True)
@@ -2755,8 +3067,12 @@ def main(argv=None):
           f'({staged / k_ms / 1e9!r} TB/s at its time), K2 copies '
           f'{streamed / 1e9!r} GB ({streamed / k2[1] / 1e9!r} TB/s)',
           flush=True)
+    for key, (e, ms, pms, bound) in (('K1', (max(err, err48), k_ms, p_ms,
+                                             b1)), ('K2', k2), ('K3', k3)):
+        note(f'{key} {ms:.4g} ms (plain {pms:.4g}, bound {bound[0]:.3g}, '
+             f'err {e:.2g})')
 
-    print('[4/17] DeviceVO main path', flush=True)
+    begin(4, 'DeviceVO main path')
     py_ms, launch_us, objs = host_pace(dev)
     print(f'  host pace: Python loop {py_ms!r} ms, {launch_us!r} us per '
           f'launch, {objs} objects tracked by gc', flush=True)
@@ -2764,7 +3080,7 @@ def main(argv=None):
     check(dv['corr_onepass'] >= dv_iters, f'K1 launched '
           f'{dv["corr_onepass"]} times, expected >= {dv_iters}')
 
-    print('[5/17] hybrid main path', flush=True)
+    begin(5, 'hybrid main path')
     hy, hy_iters, hy_stats = main_path(dev, 'default.yaml + GRADIENT_BIAS',
                                        'fused_k',
                                        CENTROID_SEL_STRAT='GRADIENT_BIAS')
@@ -2787,7 +3103,7 @@ def main(argv=None):
               f'{st["busy"]!r}, idle {st["idle"]!r}; correlation ms/frame: '
               f'{corr}', flush=True)
 
-    print('[6/17] DeviceVO with fused_k', flush=True)
+    begin(6, 'DeviceVO with fused_k')
     dk, dk_iters, _ = main_path(dev, 'default.yaml', 'fused_k', n_frames=12,
                                 measure=False)
     check(dk['corr_planes'] >= dk_iters and
@@ -2795,41 +3111,48 @@ def main(argv=None):
           f'K2 / K3 launched {dk}, expected >= {dk_iters} / '
           f'{2 * dk_iters}')
 
-    print('[7/17] CUDA vs CPU', flush=True)
+    begin(7, 'CUDA vs CPU')
     small_cpu_vs_cuda(dev)
 
-    print('[8/17] correlation probes', flush=True)
+    begin(8, 'correlation probes')
     probe_entries = probes()
+    for e in probe_entries:
+        note(f'{e["name"]} {e["ms"]:.4g} ms (bound {e["bound_ms"]:.3g})')
 
-    print('[9/17] DeviceVO on yuv420, per frame and chunked', flush=True)
+    begin(9, 'DeviceVO on yuv420, per frame and chunked')
     ingest_and_chunks(dev, smi, dv_stats)
 
-    print('[10/17] HybridVO on yuv420, CUDA vs CPU', flush=True)
+    begin(10, 'HybridVO on yuv420, CUDA vs CPU')
     small_cpu_vs_cuda(dev, runs=(
         ('HybridVO', (256, 320), 'onepass', dict(GB, UPLOAD_FORMAT='yuv420'),
          ('corr_onepass',)),), precisions=(True,))
 
-    print('[11/17] accuracy on the card', flush=True)
+    begin(11, 'accuracy on the card')
     accuracy_on_card(dev)
 
-    print('[12/17] DPV-SLAM (learned loop closure) on the card', flush=True)
+    begin(12, 'DPV-SLAM (learned loop closure) on the card')
     dpv_slam_on_card(dev, smi)
 
-    print('[13/17] training on the card', flush=True)
+    begin(13, 'training on the card')
     backward_entry = train_on_card(dev, smi)
+    note(f'corr_backward {backward_entry["ms"]:.4g} ms (plain '
+         f'{backward_entry["plain_ms"]:.4g}, bound '
+         f'{backward_entry["bound_ms"]:.3g})')
 
-    print('[14/17] classic loop closure on the card', flush=True)
+    begin(14, 'classic loop closure on the card')
     classic_on_card(dev, smi)
 
-    print('[15/17] entry points on the card', flush=True)
+    begin(15, 'entry points on the card')
     entry_points_on_card(dev, smi, dv_stats, ho_stats)
 
-    print('[16/17] training and evaluation entry points on the card',
-          flush=True)
+    begin(16, 'training and evaluation entry points on the card')
     train_eval_on_card(dev, smi)
 
-    print('[17/17] the geometry library on the card', flush=True)
+    begin(17, 'the geometry library on the card')
     geometry_on_card(dev, smi)
+
+    begin(18, 'HybridVO with mirrors in flight on the card')
+    pipeline_on_card(dev, smi)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound):
         return dict(name=name, route='cuda', source=source,
@@ -2838,6 +3161,7 @@ def main(argv=None):
                     bound_by=bound[1], library_ms=None)
 
     print(smi)
+    print_summary()
     print(json.dumps({'kernels': [
         entry('corr_onepass', 'dpvo_torch/csrc/corr_onepass.cu',
               'dpvo_tpu/ops/corr_onepass.py:196', dv['corr_onepass'],

@@ -30,6 +30,9 @@ Layer map (module names mirror dpvo_tpu/):
                         use)
   runtime/              DeviceVO, HybridVO and the DPVO constructor; I420
                         packing for the yuv420 upload (i420.py)
+  transfer.py           host <-> device copies that do not wait for the
+                        device: page-locked uploads, read-backs in flight
+                        (HybridVO's MIRROR_PIPELINE)
   parallel/streams.py   MultiStreamVO: B DeviceVOs stepped in lockstep,
                         one torch device per stream
   viz/                  the viewer thread (viewer.py: jpg frames, ply, 3D

@@ -77,8 +77,8 @@ cfg = CfgNode(
     MIXED_PRECISION=True,
     # frame ingest: 'rgb' or 'yuv420' (I420 planes, half the bytes)
     UPLOAD_FORMAT='rgb',
-    # hybrid runtime: host mirrors in flight; this package runs every
-    # value synchronously (runtime/dpvo.py)
+    # hybrid runtime: frames whose host mirrors may be in flight at once
+    # (runtime/dpvo.py); 1 reads each frame's back before the next
     MIRROR_PIPELINE=1,
     LOOP_CLOSURE=False,
     BACKEND_THRESH=64.0,

@@ -183,10 +183,13 @@ def apply_pgo_result(slam, final_est):
     the poses, their depths are divided by each frame's scale, the removed
     frames' deltas are rescaled by their source keyframe's scale, and the
     device rows are written (after a keyframe removal the device still
-    owed), then gauge-normalized, and the host mirrors read back. It needs
+    owed), then gauge-normalized, and the host mirrors read back. The
+    mirrors in flight (MIRROR_PIPELINE > 1) are applied first, so that
+    none computed before the result lands after it. It needs
     no OpenCV (the runtime package is imported here, not at module level,
     so that the PGO worker does not load it)."""
     from ..runtime import numpy_se3 as nse3
+    slam._apply_in_flight()
     safe_i = final_est.shape[0]
     res = nse3.inv(final_est[:, :7])
     s = final_est[:, 7]

@@ -120,10 +120,10 @@ def shift_frames(st, k, n, *, M, pmem, mem):
         buf[k * rows:(n - 1) * rows] = buf[(k + 1) * rows:n * rows].clone()
     for name, slots, rows in (('imap', pmem, M), ('gmap', pmem, M),
                               ('fmap1', mem, 1), ('fmap2', mem, 1)):
-        moved = [(k + i) % slots for i in range(min(n - 1 - k, slots))]
-        if not moved:
+        count = min(n - 1 - k, slots)
+        if count <= 0:
             continue
-        dst = torch.tensor(moved, device=st.poses.device)
+        dst = (k + torch.arange(count, device=st.poses.device)) % slots
         buf = getattr(st, name).view((slots, rows) + getattr(
             st, name).shape[1:])
         buf.index_copy_(0, dst, buf.index_select(0, (dst + 1) % slots))

@@ -136,8 +136,10 @@ def _port_normalize(poses, depth, n, M, delta):
         st=SimpleNamespace(poses=torch.from_numpy(poses.copy()),
                            depth=torch.from_numpy(depth.copy())),
         n=n, M=M, delta={k: (t0, dP.copy()) for k, (t0, dP) in
-                         delta.items()})
+                         delta.items()},
+        _scale_events=[], _delta_epoch={k: 0 for k in delta})
     HybridVO.normalize(host)
+    HybridVO._settle_deltas(host)
     return host.st.poses.numpy(), host.st.depth.numpy(), host.delta
 
 

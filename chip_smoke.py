@@ -31,8 +31,12 @@ Phases (any failure raises, so the exit code is non-zero):
   4. DeviceVO main path: dpvo_torch.runtime.DPVO with config/default.yaml at
      640x480 and the full-width VONet (artifacts/micro_vonet.npz), 40
      synthetic frames + terminate(); K1 must cover every update iteration;
-     wall, device busy, idle share and top kernels from a profiler trace,
-     bytes uploaded per frame; colors() of the keyframes;
+     the frames after the bootstrap run under
+     torch.cuda.set_sync_debug_mode and must make no host-device sync (the
+     state machine's scalars and decisions stay on the card; the syncs per
+     frame and their call sites are printed); wall, device busy, idle share
+     and top kernels from a profiler trace, bytes uploaded per frame;
+     colors() of the keyframes;
   5. hybrid main path: the same with CENTROID_SEL_STRAT=GRADIENT_BIAS
      (HybridVO) and DPVO_CORR_IMPL=fused_k, 40 frames + terminate(); K2 and
      K3 must cover every update iteration; the same measurements; then
@@ -40,7 +44,8 @@ Phases (any failure raises, so the exit code is non-zero):
      iteration), measured alike: wall, busy and idle, and K1 against K2 +
      K3 in device ms per frame;
   6. DeviceVO with DPVO_CORR_IMPL=fused_k, 12 frames + terminate() at
-     640x480: K2 and K3 launch there too;
+     640x480: K2 and K3 cover every update iteration there too, and the
+     frames after the bootstrap make no host-device sync, as in phase 4;
   7. CUDA vs CPU: DeviceVO at 64x96 (K1 vs plain) and HybridVO at
      256x320 with onepass, its default (K1), and with fused_k (K2 + K3),
      each in f32 and in bf16 (MIXED_PRECISION: K1's box kernel, K2 / K3 on
@@ -67,7 +72,9 @@ Phases (any failure raises, so the exit code is non-zero):
   9. DeviceVO on UPLOAD_FORMAT=yuv420 as in phase 4 (I420 planes packed
      on the host, turned into RGB on the device), per frame and through
      track_frames in chunks of 8: K1 must cover every update iteration of
-     both, chunked poses within 1e-3 of per-frame ones, the first 10
+     both, and neither may make a host-device sync after the bootstrap
+     frame (phase 4's count, per frame and per chunk of 8), chunked poses
+     within 1e-3 of per-frame ones, the first 10
      frames on CUDA and on the CPU within 1e-2; the host's rgb_to_i420
      time at 640x480; wall, device busy, idle share and bytes uploaded per
      frame of both, beside phase 4's rgb run, with the card's name and
@@ -213,6 +220,7 @@ headline numbers on one line. The last two lines of stdout are a JSON
 line with the kernels' numbers and {"ok": true, "device": {...}}.
 """
 import collections
+import contextlib
 import itertools
 import json
 import os
@@ -664,10 +672,14 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, chunk=None,
     DeviceVO.track_frames, K per call. With measure, the calls that start
     at frames 10 .. (the traced ones) give the wall time per frame and the
     calls from frame n-10 on (the first call starting there) a profiler
-    trace. Returns (launches, update iterations, {poses; slam; h2d: bytes
-    uploaded per frame (DeviceVO); with measure, wall, busy, idle: ms per
-    frame and share; K1, K2, K3: the correlation kernels' device ms per
-    frame})."""
+    trace. On DeviceVO the calls that start after the bootstrap frame (7,
+    the probe forced) run under torch.cuda.set_sync_debug_mode: any
+    host-device sync there fails the run, after its call sites are
+    printed (the state machine keeps its decisions on the card). Returns
+    (launches, update iterations, {poses; slam; h2d: bytes uploaded per
+    frame (DeviceVO); syncs: per frame after the bootstrap (DeviceVO);
+    with measure, wall, busy, idle: ms per frame and share; K1, K2, K3:
+    the correlation kernels' device ms per frame})."""
     import torch
     from dpvo_torch.config import cfg as base_cfg
 
@@ -685,6 +697,9 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, chunk=None,
     slam = make_slam(cfg, H, W, dev, corr_impl)
     print(f'  {label}: {type(slam).__name__}, DPVO_CORR_IMPL={corr_impl}'
           f'{f", chunks of {chunk} frames" if chunk else ""}', flush=True)
+    from dpvo_torch.runtime import DeviceVO
+    syncs = SyncCounter() if isinstance(slam, DeviceVO) else None
+    steady = []                        # frames of the calls counted
 
     K = chunk or 1
     starts = range(0, n_frames, K)
@@ -704,12 +719,16 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, chunk=None,
                 prof.__enter__()
                 t_trace = time.perf_counter()
             t0 = time.perf_counter()
-            if chunk:
-                slam.track_frames(ts, np.stack(frames[t:t + K]), intr)
-            else:
-                slam(t, frames[t], intr)
+            with (syncs if syncs is not None and t >= 8 else
+                  contextlib.nullcontext()):
+                if chunk:
+                    slam.track_frames(ts, np.stack(frames[t:t + K]), intr)
+                else:
+                    slam(t, frames[t], intr)
             torch.cuda.synchronize()
             walls.append((t, (time.perf_counter() - t0) / len(ts)))
+            if syncs is not None and t >= 8:
+                steady += ts
         if prof is not None:
             wall_trace = time.perf_counter() - t_trace
             prof.__exit__(None, None, None)
@@ -731,12 +750,24 @@ def main_path(dev, label, corr_impl, n_frames=40, measure=True, chunk=None,
     print(f'  {n_frames} frames + terminate(): keyframes n = {slam.n}'
           f'{edges}, launches {launches} (update iterations = {expected})')
     stats = dict(poses=poses, slam=slam, h2d=(slam.h2d_bytes / n_frames
-                                   if hasattr(slam, 'h2d_bytes') else None))
+                                   if hasattr(slam, 'h2d_bytes') else None),
+                 syncs=None)
+    if syncs is not None and steady:
+        stats['syncs'] = syncs.n / len(steady)
+        print(f'  host-device syncs after the bootstrap frame '
+              f'(torch.cuda.set_sync_debug_mode, frames {steady[0]}..'
+              f'{steady[-1]} in calls of {K}): {syncs.n}, '
+              f'{stats["syncs"]!r} per frame; call sites '
+              f'{dict(syncs.sites) or "none"}', flush=True)
+        check(syncs.n == 0, f'{label}: {syncs.n} host-device syncs after '
+              f'the bootstrap frame, at {dict(syncs.sites)}')
     if hasattr(slam, 'colors'):
         clr = slam.colors()
         check(clr.dtype == np.uint8 and clr.shape == (slam.n, slam.M, 3),
               f'colors() {clr.dtype} {clr.shape}')
     counts = ', '.join(f'{k} {v}' for k, v in launches.items() if v)
+    if stats['syncs'] is not None:
+        counts += f', syncs/frame {stats["syncs"]:.3g}'
     if not measure:
         note(f'{label} {corr_impl}: n = {slam.n}, launches {counts}')
         return launches, expected, stats
@@ -912,7 +943,9 @@ def ingest_and_chunks(dev, smi, rgb):
     for label, st in runs.items():
         print(f'    {label}: wall {st["wall"]!r} ms/frame, device busy '
               f'{st["busy"]!r} ms/frame, idle share {st["idle"]!r}, '
-              f'{st["h2d"]!r} bytes uploaded per frame', flush=True)
+              f'{st["h2d"]!r} bytes uploaded per frame, '
+              f'{st["syncs"]!r} host-device syncs per frame after the '
+              f'bootstrap', flush=True)
 
 
 def accuracy_on_card(dev):
@@ -2132,9 +2165,10 @@ def multistream_on_card(dev, B=2, H=480, W=640, T=40, opts=()):
     iters = 12 + (T - 8)                # bootstrap + 1/frame, no terminate
     check(k1 == B * iters, f'(c) K1 launched {k1} times, expected '
           f'{B} x {iters}')
+    kf = [int(st.n) for st in mv.states]
     for b, st in enumerate(mv.states):
-        poses = st.poses[:st.n].cpu().numpy()
-        check(st.is_init and st.n >= 8, f'(c) stream {b}: n = {st.n}')
+        poses = st.poses[:kf[b]].cpu().numpy()
+        check(bool(st.is_init) and kf[b] >= 8, f'(c) stream {b}: n = {kf[b]}')
         check(np.isfinite(poses).all() and
               np.abs(poses[-1, :3]).max() > 1e-3,
               f'(c) stream {b}: poses {poses[-1]}')
@@ -2144,7 +2178,7 @@ def multistream_on_card(dev, B=2, H=480, W=640, T=40, opts=()):
     print(f'  (c) MultiStreamVO, {B} streams on {[str(d) for d in mv.devices]}'
           f', {T} lockstep frames at {W}x{H} '
           f'{"bf16" if cfg.MIXED_PRECISION else "f32"}: K1 launches {k1} = {B} x '
-          f'{iters} update iterations; keyframes {[st.n for st in mv.states]}'
+          f'{iters} update iterations; keyframes {kf}'
           f'; wall per lockstep step median {step!r} ms over steps '
           f'10..{trace_from - 1} ({step / B!r} ms per stream-frame)',
           flush=True)
@@ -2180,7 +2214,7 @@ def multistream_cpu_vs_cuda(dev, B=2, T=16, H=64, W=96):
                 mv(np.full(B, float(t)), frames[t])
             if d == dev:
                 k1 = read_launches()['corr_onepass']
-            out[d] = [(st.n, st.poses[:st.n].cpu().numpy())
+            out[d] = [(int(st.n), st.poses[:int(st.n)].cpu().numpy())
                       for st in mv.states]
         tol = 1e-2 if mixed else 1e-3
         prec = 'bf16' if mixed else 'f32'

@@ -108,9 +108,13 @@ def plane_oracle(gt_poses):
     z = PLANE_Z with the ground-truth pose of ii and projected into frame
     jj with that of jj; unit weights."""
     gt_np = np.asarray(gt_poses, np.float32)
+    on_device = {}             # the poses uploaded once per device
 
     def oracle(poses, patch_xy, depth, intr, ii, jj, kk):
-        gt = torch.as_tensor(gt_np, device=poses.device)
+        gt = on_device.get(poses.device)
+        if gt is None:
+            gt = on_device[poses.device] = torch.as_tensor(
+                gt_np, device=poses.device)
         c = patch_xy[kk][:, :, P // 2, P // 2]        # (E, 2) 1/RES pixels
         fi, fj = intr[ii], intr[jj]
         d_c = torch.stack([(c[:, 0] - fi[:, 2]) / fi[:, 0],

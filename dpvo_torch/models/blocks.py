@@ -82,7 +82,7 @@ class SoftAgg(nn.Module):
         ok = (psl >= 0) & (psl < num_slots)
         keep = (mask3 & ok[:, None])[..., None]
         slot = psl.clamp(0, num_slots - 1)
-        neg = torch.tensor(-1e30, dtype=dt, device=x3.device)
+        neg = torch.full((), -1e30, dtype=dt, device=x3.device)
         gxm = torch.where(keep, gx, neg)
         # group max in f32: a max is a selection, so it is exact in dt
         mx = torch.full((num_slots, M, D), -1e30, dtype=torch.float32,

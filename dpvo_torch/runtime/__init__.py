@@ -2,7 +2,8 @@
 
 Two implementations behind one constructor, as in dpvo_tpu:
   * DeviceVO (runtime/device_vo.py) -- the pure-VO state machine on the
-    device, one keyframe-test read back per frame;
+    device, its scalars there too: no read back per frame after the
+    bootstrap;
   * HybridVO (runtime/dpvo.py) -- host-orchestrated, for every other
     config: GRADIENT_BIAS centroids, DPV-SLAM's learned loop closure
     (LOOP_CLOSURE: proximity edges, the inactive edge store, gauge

@@ -7,10 +7,20 @@ same draws, in the same order, as dpvo_tpu -- then one flat uint8 row,
 vo_frame runs there. The image bytes are the RGB frame or, with
 UPLOAD_FORMAT=yuv420, its I420 planes (half the bytes; packed on the host by
 i420.rgb_to_i420, turned back into RGB on the device). track_frames uploads
-a chunk of such rows in one copy. terminate() runs 12 refinement iterations
-and reads the trajectory back once. With viz, each frame goes to the viewer
-(viz/viewer.py) and every 10th frame, and terminate(), push it a snapshot
-of the keyframes' poses and points, read back in one copy.
+a chunk of such rows in one copy. Uploads go through page-locked memory
+without waiting for the device (transfer.upload).
+
+The host reads nothing back per frame from the bootstrap frame on: the
+state machine's decisions stay on the device (device_vo.py), and the
+keyframe buffer's guard reads `n` only when the worst case -- every frame
+since its last read a keyframe -- could overflow BUFFER_SIZE. Before
+initialization the learned motion probe's accept decision is read once per
+frame (none with force_accept). The read points are those of dpvo_tpu: the
+`n` property, point_cloud(), colors(), the viewer's snapshots and
+terminate(), which runs 12 refinement iterations and reads the trajectory
+back once. With viz, each frame goes to the viewer (viz/viewer.py) and
+every 10th frame, and terminate(), push it a snapshot of the keyframes'
+poses and points, read back in one copy.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ import numpy as np
 import torch
 
 from ..models.vonet import RES, VONet, load_vonet
+from ..transfer import upload
 from . import numpy_se3 as nse3
 from .centroid import select_coords
 from .device_vo import CNT_CAP, init_state, vo_frame_packed1, \
@@ -121,6 +132,9 @@ class DeviceVO:
         self.st = None
         self.tlist = []
         self.h2d_bytes = 0       # bytes uploaded by __call__ / track_frames
+        # the keyframe guard's last read of n, and frames enqueued since
+        self._last_n = 0
+        self._since_check = 0
         self.viewer = None
         if viz:
             from ..viz.viewer import Viewer
@@ -135,12 +149,22 @@ class DeviceVO:
         if len(self.tlist) + K >= CNT_CAP:
             raise RuntimeError('input frame capacity exceeded; raise '
                                'device_vo.CNT_CAP')
-        # BUFFER_SIZE bounds keyframes (reference dpvo.py:383-384); the
-        # keyframe count is known on the host, so the check is exact
-        if self.st.n + K + 1 >= self.cfg.BUFFER_SIZE:
-            raise RuntimeError(
-                f'The buffer size is too small. You can increase it using '
-                f'"--opts BUFFER_SIZE={self.cfg.BUFFER_SIZE * 2}"')
+        # BUFFER_SIZE bounds keyframes (reference dpvo.py:383-384), and the
+        # keyframe count lives on the device: read it only when the worst
+        # case (every frame since the last read accepted and kept) could
+        # refuse these K frames (dpvo_tpu's lazy guard,
+        # device_driver.py:110-123); before the bootstrap frame the host
+        # knows it. The frame refused is the one an exact check refuses.
+        N = self.cfg.BUFFER_SIZE
+        if self._last_n + self._since_check + K + 1 >= N:
+            host_n = self.st.host_n
+            self._last_n = host_n if host_n is not None else self.n
+            self._since_check = 0
+            if self._last_n + K + 1 >= N:
+                raise RuntimeError(
+                    f'The buffer size is too small. You can increase it '
+                    f'using "--opts BUFFER_SIZE={N * 2}"')
+        self._since_check += K
 
     def _frame(self, image):
         image = np.ascontiguousarray(image, np.uint8)
@@ -168,10 +192,10 @@ class DeviceVO:
         return np.concatenate([pix.reshape(-1), aux.view(np.uint8).ravel()])
 
     def _upload_rows(self, bufs):
-        """One host-to-device copy. The host buffer is made anew for every
-        call, so nothing rewrites it while the copy runs."""
+        """One host-to-device copy through page-locked memory, which the
+        host does not wait for (transfer.upload)."""
         self.h2d_bytes += bufs.nbytes
-        return torch.from_numpy(bufs).to(self.device, non_blocking=True)
+        return upload(bufs, self.device)
 
     def _kw(self):
         return dict(ht=self.ht, wd=self.wd, upload=self._upload,
@@ -205,7 +229,7 @@ class DeviceVO:
         """Send the viewer the keyframes' world-from-camera poses, points
         and colors (dpvo_tpu's raw f32 colors, BGR), read back in one
         copy."""
-        st, n, M = self.st, self.st.n, self.M
+        st, n, M = self.st, self.n, self.M
         if n < 2:
             return
         flat = torch.cat([st.poses[:n].reshape(-1), st.centers[:n].reshape(-1),
@@ -221,8 +245,9 @@ class DeviceVO:
     def track_frames(self, tstamps, images, intrinsics):
         """Track a chunk of K frames from one upload (dpvo_tpu's
         track_frames): images (K, ht, wd, 3) uint8. The math is per-frame
-        __call__'s, frame by frame (device_vo.vo_frames), so are its host
-        reads; the chunk saves K - 1 uploads."""
+        __call__'s, frame by frame (device_vo.vo_frames_packed1): from the
+        bootstrap frame on, the K frames are enqueued with no read back,
+        as per-frame calls are; the chunk saves K - 1 uploads."""
         K = len(images)
         self._start(K, intrinsics)
         frames = [self._frame(img) for img in images]
@@ -242,11 +267,12 @@ class DeviceVO:
                                 oracle=self._oracle)
 
         st = self.st
+        n, counter = self.n, int(st.counter)
         poses_np = st.poses.cpu().numpy()
         tstamps = st.tstamps.cpu().numpy()
         delta_src = st.delta_src.cpu().numpy()
         delta_pose = st.delta_pose.cpu().numpy()
-        traj = {int(tstamps[i]): poses_np[i] for i in range(st.n)}
+        traj = {int(tstamps[i]): poses_np[i] for i in range(n)}
 
         def get_pose(t):
             chain = []
@@ -258,7 +284,7 @@ class DeviceVO:
                 pose = nse3.mul(delta_pose[t1], pose)
             return pose
 
-        poses = nse3.inv(np.stack([get_pose(t) for t in range(st.counter)]))
+        poses = nse3.inv(np.stack([get_pose(t) for t in range(counter)]))
         if self.viewer is not None:
             self._push_viewer_state()
             self.viewer.join()
@@ -266,11 +292,12 @@ class DeviceVO:
 
     @property
     def n(self):
-        return self.st.n if self.st is not None else 0
+        """The keyframe count, read back from the device (a host int)."""
+        return int(self.st.n) if self.st is not None else 0
 
     def point_cloud(self):
         """(n*M, 3) world points of the live keyframes' patch centers."""
-        st, n = self.st, self.st.n
+        st, n = self.st, self.n
         return _points(st.poses.cpu().numpy(),
                        st.centers[:n].cpu().numpy().reshape(-1, 2),
                        st.depth[:n * self.M].cpu().numpy(),
@@ -280,5 +307,5 @@ class DeviceVO:
         """(n, M, 3) uint8 colors of the live keyframes' patch centers,
         channels reversed as dpvo_tpu's colors() does (the reference's
         readers deliver BGR frames, so this gives RGB)."""
-        clr = self.st.colors[:self.st.n].cpu().numpy()
+        clr = self.st.colors[:self.n].cpu().numpy()
         return np.clip(clr[..., [2, 1, 0]], 0, 255).astype(np.uint8)

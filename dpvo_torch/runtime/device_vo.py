@@ -6,15 +6,25 @@ pair-blocked edge table (GP_CAP pairs x M patches, with validity masks),
 patch and feature buffers, the feature-ring slot map, poses, depths and the
 trajectory deltas of removed keyframes.
 
-Control flow. The JAX version decides everything in-graph (lax.cond /
-fori_loop). Here the scalars that decide it -- keyframe count `n`, input
-counter `counter`, `is_init` -- live on the host: they follow from the
-accept and keyframe decisions alone. Two decisions depend on device values
-and read one scalar back (a device sync each):
-  * the motion probe (only without force_accept, before initialization);
-  * the keyframe test `mflow < kf_thresh` (every frame once initialized).
-Everything else (pair append, compaction, slot allocation, the update
-and BA loop) is enqueued without a sync.
+Control flow. As in dpvo_tpu, the scalars that decide it -- the keyframe
+count `n`, the input counter `counter` and `is_init` -- are 0-d tensors on
+the state's device, and every decision that depends on a device value is
+made there: the motion model's branches and the depth init are
+torch.where, the rows written at `n`, the slot allocator's window, the
+pair append (cnt + cumsum(new_v) - 1, rows past GP dropped) and the BA
+windows are device indices, and the keyframe test `mflow < kf_thresh` is a
+device bool `rm` that gates the trajectory delta, the pair drop and a
+masked shift of whole frames over the KEYFRAME_INDEX rows that can move.
+From the bootstrap frame on, the host reads nothing per frame.
+
+One thing eager PyTorch cannot leave on the device: how many update
+iterations a frame runs (12 at bootstrap, 1 once initialized, 0 before;
+dpvo_tpu's fori_loop takes a device trip count). Before initialization no
+keyframe is removed, so `n` is the number of accepted frames and the host
+follows it exactly in `VOState.host_n` until the bootstrap frame. With
+force_accept that takes no read; without it the host reads one value per
+pre-init frame after the first, the motion probe's accept decision, where
+dpvo_tpu's lax.cond reads nothing. That read is the only one left.
 
 Ingest (vo_frame_packed1, vo_frames_packed1): one flat uint8 upload per
 frame, [image bytes (rgb, or I420 planes turned back into RGB here by
@@ -30,8 +40,8 @@ import numpy as np
 import torch
 
 from .. import lie
-from ..ba_pairs import bundle_adjust_pairs, clamp_start, pair_centers, \
-    pair_depth
+from ..ba_pairs import bundle_adjust_pairs, pair_centers, pair_depth, \
+    window_rows
 from ..models.vonet import DIM, P
 from ..ops.corr_fused import corr_fused
 from ..ops.corr_onepass import corr_two_level
@@ -61,9 +71,12 @@ class VOState:
     delta_pose: torch.Tensor   # (CNT_CAP, 7)
     intr: torch.Tensor         # (4,) intrinsics / RES
     fslot: torch.Tensor        # (N,) int64 frame index -> feature ring slot
-    n: int = 0                 # keyframe count (host)
-    counter: int = 0           # input frame count (host)
-    is_init: bool = False      # (host)
+    n: torch.Tensor            # () int64 keyframe count
+    counter: torch.Tensor      # () int64 input frame count
+    is_init: torch.Tensor      # () bool
+    # n on the host until the bootstrap frame, exact there (no keyframe is
+    # removed before it); None from the bootstrap frame on
+    host_n: int | None = 0
 
     def tensors(self):
         return {f.name: getattr(self, f.name) for f in fields(self)
@@ -120,6 +133,9 @@ def init_state(cfg, ht, wd, intrinsics, device, dtype):
         intr=torch.as_tensor(np.asarray(intrinsics, np.float32) / 4.0,
                              device=device),
         fslot=torch.zeros((N,), dtype=torch.long, **kw),
+        n=torch.zeros((), dtype=torch.long, **kw),
+        counter=torch.zeros((), dtype=torch.long, **kw),
+        is_init=torch.zeros((), dtype=torch.bool, **kw),
     )
 
 
@@ -135,20 +151,29 @@ def _median(x):
     return s[k // 2] if k % 2 else 0.5 * (s[k // 2 - 1] + s[k // 2])
 
 
+def _row(buf, i):
+    """buf[i] for a 0-d integer tensor i, clamped into the buffer like a
+    JAX gather: an index_select, so no read."""
+    return buf.index_select(0, i.clamp(0, buf.shape[0] - 1).reshape(1))[0]
+
+
+def _rows(buf, start, size):
+    """buf[start:start + size] for a 0-d integer tensor start, the window
+    clamped into the buffer (lax.dynamic_slice)."""
+    return buf.index_select(0, window_rows(start, size, buf.shape[0],
+                                           buf.device))
+
+
 def _center_flow(poses, centers, depth, intr, i, j, M, beta=0.5):
     """Mean blended flow magnitude of frame i's patch centers into frame j
-    (reference pops.flow_mag at the keyframe test, dpvo.py:257-264)."""
+    (reference pops.flow_mag at the keyframe test, dpvo.py:257-264); i, j
+    0-d integer tensors."""
     fx, fy, cx, cy = intr.unbind(0)
-    i_c = clamp_start(i, 1, centers.shape[0])
-    c = centers[i_c].reshape(M, 2)
-    s = clamp_start(i * M, M, depth.shape[0])
-    d = depth[s:s + M]
+    c = _row(centers, i).reshape(M, 2)
+    d = _rows(depth, i * M, M)
     X0 = torch.stack([(c[:, 0] - cx) / fx, (c[:, 1] - cy) / fy,
                       torch.ones_like(d), d], dim=-1)
-    # poses[i] / poses[j] with gather-style index clamping
-    N = poses.shape[0]
-    Gij = lie.se3_mul(poses[min(max(j, 0), N - 1)],
-                      lie.se3_inv(poses[min(max(i, 0), N - 1)]))
+    Gij = lie.se3_mul(_row(poses, j), lie.se3_inv(_row(poses, i)))
 
     def proj(X):
         Z = X[..., 2].clamp(min=0.1)
@@ -205,14 +230,20 @@ def _reproject_pairs(poses, centers, depth, intr, pi, pj, M):
                         fy * X1[..., 1] / Z + cy], dim=-1)
 
 
-def _shift_frames(st, k, M):
-    """Keyframe removal: frame rows (k, n) move down by one. The feature
-    buffers stay put; the fslot map that points into them shifts instead."""
-    n = st.n
-    for name in ('poses', 'tstamps', 'colors', 'centers', 'fslot'):
-        buf = getattr(st, name)
-        buf[k:n - 1] = buf[k + 1:n].clone()
-    st.depth[k * M:(n - 1) * M] = st.depth[(k + 1) * M:n * M].clone()
+def _shift_frames(st, k, n, rm, M, span):
+    """Keyframe removal as a masked shift of whole frames: where the 0-d
+    bool `rm` holds, frame rows [k, n - 1) take rows [k + 1, n) (k, n 0-d
+    integer tensors, n - k <= span): poses, tstamps, colors, centers, fslot
+    and depth in blocks of M. Only the span rows from k can move: they are
+    gathered by device index and written back, the rest of the buffers is
+    not touched. The feature buffers stay put; the fslot map that points
+    into them shifts instead."""
+    N = st.poses.shape[0]
+    rows = window_rows(k, min(span, N), N, st.poses.device)
+    src = torch.where(rm & (rows >= k) & (rows < n - 1), rows + 1, rows)
+    for buf in (st.poses, st.tstamps, st.colors, st.centers, st.fslot,
+                st.depth.view(N, M)):
+        buf.index_copy_(0, rows, buf.index_select(0, src))
 
 
 def _compact_pairs(st):
@@ -226,11 +257,10 @@ def _compact_pairs(st):
 
 
 def _set_rows(buf, idx, val):
-    """buf[idx] = val where idx == len(buf) means "drop" (the
-    .at[].set(mode='drop') semantics): the write goes to a spare row."""
-    ext = torch.cat([buf, buf[:1]])
-    ext[idx] = val
-    return ext[:-1]
+    """buf[idx] = val (a tensor on buf's device) where idx == len(buf)
+    means "drop" (the .at[].set(mode='drop') semantics): the write goes to
+    a spare row."""
+    return torch.cat([buf, buf[:1]]).index_copy_(0, idx, val)[:-1]
 
 
 def _corr_features(st, pi_a, pj_a, pv_a, poses, depth, M, corr_dtype,
@@ -284,16 +314,17 @@ def _update_ba(network, st, n1, *, M, W, PCF, iterations,
                corr_impl='onepass', oracle=None):
     """`iterations` rounds of correlation + update operator + 2-step BA over
     the live pairs (the body of vo_frame's update loop and of vo_refine).
-    W = OPTIMIZATION_WINDOW: the BA's pose slots, ending at keyframe n1.
-    With an oracle, its targets and weights replace the correlation and
-    the update operator; the net state stays as it is."""
+    W = OPTIMIZATION_WINDOW: the BA's pose slots, ending at keyframe n1 (a
+    0-d integer tensor). With an oracle, its targets and weights replace
+    the correlation and the update operator; the net state stays as it
+    is."""
     GP = st.pi.shape[0]
     pmem = st.gmap.shape[0] // M
     ar = torch.arange(M, device=st.pi.device)
     edge_mask = st.pvalid.repeat_interleave(M)
     mask3 = edge_mask.reshape(GP, M, 1)
-    t0 = max(n1 - W, 1)
-    fbase = max(n1 - (PCF - 2), 0)
+    t0 = (n1 - W).clamp(min=1)
+    fbase = (n1 - (PCF - 2)).clamp(min=0)
     if oracle is None:
         ix_pair, jx_pair = _pair_neighbors(st.pi, st.pj, st.pvalid)
         ix_e = torch.where(ix_pair[:, None] >= 0, ix_pair[:, None] * M + ar,
@@ -343,8 +374,9 @@ def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
     (i420_to_rgb's output); aux (M, 4) f32 [x, y, depth seed, tstamp]
     (patch centroids at 1/4 scale, the frame's depth seeds, its timestamp
     in every row). oracle: see _update_ba; pair it with force_accept (the
-    motion probe still runs the learned network)."""
-    n = st.n
+    motion probe still runs the learned network). Reads nothing back but
+    the probe's accept decision before initialization (module docstring)."""
+    n, counter = st.n, st.counter
     N = st.poses.shape[0]
     GP = st.pi.shape[0]
     pmem = st.gmap.shape[0] // M
@@ -353,50 +385,47 @@ def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
 
     # ---------------- patchify + store ---------------- #
     ndt = network.dtype
-    img = image.to(ndt) * torch.tensor(2.0 / 255.0, dtype=ndt, device=dev) \
-        - torch.tensor(0.5, dtype=ndt, device=dev)
+    img = image.to(ndt) * torch.full((), 2.0 / 255.0, dtype=ndt, device=dev) \
+        - torch.full((), 0.5, dtype=ndt, device=dev)
     feats = network.patchify_frame(img, coords)
 
     # motion model (dpvo.py:410-424); indices clamp like the JAX gathers
-    P1 = st.poses[max(n - 1, 0)]
-    if n > 1 and motion_model == 'DAMPED_LINEAR':
-        P2 = st.poses[max(n - 2, 0)]
-        tc = st.in_times[max(st.counter - 1, 0)]
-        tb = st.in_times[max(st.counter - 2, 0)]
-        if st.counter >= 2:
-            fac = torch.where((tb - tc).abs() > 0,
-                              (tstamp - tc) / torch.clamp(tc - tb, min=1e-6),
-                              1.0)
-        else:
-            fac = torch.ones((), device=dev)
+    P1 = _row(st.poses, n - 1)
+    pose_init = P1
+    if motion_model == 'DAMPED_LINEAR':
+        P2 = _row(st.poses, n - 2)
+        tc = _row(st.in_times, counter - 1)
+        tb = _row(st.in_times, counter - 2)
+        fac = torch.where((counter >= 2) & ((tb - tc).abs() > 0),
+                          (tstamp - tc) / torch.clamp(tc - tb, min=1e-6), 1.0)
         xi = motion_damping * fac * lie.se3_log(
             lie.se3_mul(P1, lie.se3_inv(P2)))
-        pose_init = lie.se3_mul(lie.se3_exp(xi), P1)
-    else:
-        pose_init = P1
+        pose_init = torch.where(n > 1, lie.se3_mul(lie.se3_exp(xi), P1), P1)
 
     # depth init (dpvo.py:426-431): median of the last 3 frames' depths
-    if st.is_init:
-        lo = clamp_start(max(n - 3, 0) * M, 3 * M, st.depth.shape[0])
-        depth_init = _median(st.depth[lo:lo + 3 * M]).expand(M)
-    else:
-        depth_init = depth_seed
+    med = _median(_rows(st.depth, (n - 3).clamp(min=0) * M, 3 * M))
+    depth_init = torch.where(st.is_init, med.expand(M), depth_seed)
 
-    nw = min(n, N - 1)          # dynamic_update_slice clamps its start
-    st.poses[nw] = pose_init
-    st.centers[nw] = feats['patch_xy'][:, :, 1, 1].reshape(2 * M)
-    s = clamp_start(n * M, M, st.depth.shape[0])
-    st.depth[s:s + M] = depth_init
-    st.colors[nw] = feats['clr']
-    st.tstamps[nw] = st.counter
-    st.in_times[st.counter] = tstamp
+    nw = n.clamp(max=N - 1).reshape(1)      # dynamic_update_slice clamps
+    st.poses.index_copy_(0, nw, pose_init[None])
+    st.centers.index_copy_(
+        0, nw, feats['patch_xy'][:, :, 1, 1].reshape(1, 2 * M))
+    st.depth.index_copy_(0, window_rows(n * M, M, N * M, dev), depth_init)
+    st.colors.index_copy_(0, nw, feats['clr'][None])
+    st.tstamps.index_copy_(0, nw, counter.reshape(1))
+    st.in_times.index_copy_(0, counter.clamp(max=CNT_CAP - 1).reshape(1),
+                            tstamp.reshape(1))
 
-    # ring-slot allocation: the first slot no live frame references
-    live_lo = max(n - (PCF + 2) + 1, 0)
-    used = torch.zeros((pmem,), dtype=torch.int32, device=dev)
-    used[st.fslot[live_lo:n]] = 1
-    slot = torch.argmin(used).reshape(1)     # first minimum: lowest free slot
-    st.fslot[nw:nw + 1] = slot
+    # ring-slot allocation: the first slot no live frame references, over
+    # the fixed window of PCF + 2 frames ending at n
+    live_cap = PCF + 2
+    live_lo = (n - live_cap + 1).clamp(min=0)
+    pos = window_rows(live_lo, min(live_cap, N), N, dev)
+    used = torch.zeros((pmem + 1,), dtype=torch.int32, device=dev)
+    used.index_fill_(0, torch.where((pos >= live_lo) & (pos < n),
+                                    st.fslot.index_select(0, pos), pmem), 1)
+    slot = torch.argmin(used[:pmem]).reshape(1)   # first minimum: lowest
+    st.fslot.index_copy_(0, nw, slot)
     st.imap.view(pmem, M, DIM).index_copy_(0, slot,
                                            feats['imap'][None].to(ndt))
     st.gmap.view(pmem, M, P, P, 128).index_copy_(
@@ -405,10 +434,10 @@ def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
     st.fmap2.index_copy_(0, slot, feats['fmap2'][None].to(ndt))
 
     # ---------------- probe (pre-init accept test) ---------------- #
-    if force_accept or st.is_init or n == 0:
+    if force_accept or st.host_n is None or st.host_n == 0:
         accept = True
     else:
-        pi_p = torch.full((1,), max(n - 1, 0), dtype=torch.long, device=dev)
+        pi_p = (n - 1).clamp(min=0).reshape(1)
         _, corr_feat, inp = _corr_features(
             st, pi_p, pi_p + 1, torch.ones((1,), dtype=torch.bool,
                                            device=dev),
@@ -420,67 +449,71 @@ def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
             neg, neg, ids, torch.zeros((M,), dtype=torch.long, device=dev),
             num_segments=M, edge_mask=torch.ones((M,), dtype=torch.bool,
                                                  device=dev))
-        # device sync: the accept decision needs the probe's value
+        # the one read left: the accept decision (pre-init frames only)
         accept = bool(_median(torch.linalg.vector_norm(delta, dim=-1)) >= 2.0)
 
+    st.counter = counter + 1
     if not accept:
         # rejected pre-init frame: identity delta to the previous input
-        st.delta_src[st.counter] = st.counter - 1
-        st.counter += 1
+        st.delta_src.index_copy_(0, counter.reshape(1),
+                                 (counter - 1).reshape(1))
         return st
-    st.counter += 1
 
     n1 = n + 1
-    was_init = st.is_init
-    bootstrap = n1 == 8 and not was_init
-    st.is_init = was_init or bootstrap
+    was_init = st.host_n is None
+    bootstrap = not was_init and st.host_n + 1 == 8
+    st.host_n = None if was_init or bootstrap else st.host_n + 1
+    st.is_init = st.is_init | (n1 == 8)
 
     # ---- append pair factors (dpvo.py:457-459) ---- #
     # forward (i, n1-1) for i in [n1-r, n1-1); backward (n1-1, j) for j in
-    # [n1-r, n1)
-    new_i = np.concatenate([n1 - r + np.arange(r - 1), np.full(r, n1 - 1)])
-    new_j = np.concatenate([np.full(r - 1, n1 - 1), n1 - r + np.arange(r)])
+    # [n1-r, n1); pairs with a negative frame, and rows past GP, dropped
+    ar = torch.arange(r, device=dev)
+    last = (n1 - 1).expand(r)
+    new_i = torch.cat([n1 - r + ar[:-1], last])
+    new_j = torch.cat([last[:-1], n1 - r + ar])
     new_v = (new_i >= 0) & (new_j >= 0)
-    new_i, new_j = new_i[new_v], new_j[new_v]
-    idx = st.pvalid.sum() + torch.arange(len(new_i), device=dev)
-    idx = torch.where(idx < GP, idx, GP)       # past capacity: dropped
-    st.pi = _set_rows(st.pi, idx, torch.as_tensor(new_i, device=dev))
-    st.pj = _set_rows(st.pj, idx, torch.as_tensor(new_j, device=dev))
-    st.pvalid = _set_rows(st.pvalid, idx, True)
+    idx = st.pvalid.sum() + torch.cumsum(new_v.long(), 0) - 1
+    idx = torch.where(new_v & (idx < GP), idx, GP)
+    st.pi = _set_rows(st.pi, idx, new_i.clamp(min=0))
+    st.pj = _set_rows(st.pj, idx, new_j.clamp(min=0))
+    # the rows written are the valid new pairs': new_v is True there
+    st.pvalid = _set_rows(st.pvalid, idx, new_v)
     fresh = _set_rows(torch.zeros(GP, dtype=torch.bool, device=dev), idx,
-                      True)
+                      new_v)
     st.net = st.net.masked_fill(fresh[:, None, None], 0.0)
     st.target = st.target.masked_fill(fresh[:, None, None], 0.0)
     st.weight = st.weight.masked_fill(fresh[:, None, None], 0.0)
     _compact_pairs(st)
 
     # ---- update iterations (12 at bootstrap, 1 once initialized) ---- #
-    iters = 12 if bootstrap else (1 if st.is_init else 0)
+    iters = 12 if bootstrap else (1 if was_init else 0)
     _update_ba(network, st, n1, M=M, W=W, PCF=PCF, iterations=iters,
                corr_impl=corr_impl, oracle=oracle)
     st.n = n1
 
-    # ---- keyframe decision (dpvo.py:266-310) ---- #
+    # ---- keyframe decision (dpvo.py:266-310), on the device ---- #
     if was_init:
-        i = st.n - kf_index - 1
-        j = st.n - kf_index + 1
+        i = n1 - kf_index - 1
+        j = n1 - kf_index + 1
         mflow = 0.5 * (
             _center_flow(st.poses, st.centers, st.depth, st.intr, i, j, M) +
             _center_flow(st.poses, st.centers, st.depth, st.intr, j, i, M))
-        # device sync: the keyframe decision needs the flow's value
-        if bool(mflow < kf_thresh):
-            k = st.n - kf_index
-            t1 = st.tstamps[k:k + 1]
-            dP = lie.se3_mul(st.poses[k], lie.se3_inv(st.poses[k - 1]))
-            st.delta_src.index_copy_(0, t1, st.tstamps[k - 1:k])
-            st.delta_pose.index_copy_(0, t1, dP[None])
+        rm = mflow < kf_thresh
+        k = n1 - kf_index
+        t1 = st.tstamps.index_select(0, k.reshape(1))
+        dP = lie.se3_mul(_row(st.poses, k), lie.se3_inv(_row(st.poses, k - 1)))
+        st.delta_src.index_copy_(0, t1, torch.where(
+            rm, _row(st.tstamps, k - 1), st.delta_src.index_select(0, t1)))
+        st.delta_pose.index_copy_(0, t1, torch.where(
+            rm, dP[None], st.delta_pose.index_select(0, t1)))
 
-            drop = (st.pi == k) | (st.pj == k)
-            st.pvalid = st.pvalid & ~drop
-            st.pi = torch.where(st.pi > k, st.pi - 1, st.pi)
-            st.pj = torch.where(st.pj > k, st.pj - 1, st.pj)
-            _shift_frames(st, k, M)
-            st.n -= 1
+        drop = rm & ((st.pi == k) | (st.pj == k))
+        st.pvalid = st.pvalid & ~drop
+        st.pi = torch.where(rm & (st.pi > k), st.pi - 1, st.pi)
+        st.pj = torch.where(rm & (st.pj > k), st.pj - 1, st.pj)
+        _shift_frames(st, k, n1, rm, M, kf_index)
+        st.n = n1 - rm.long()
 
         # retire pairs outside the window (dpvo.py:305-310)
         st.pvalid = st.pvalid & (st.pi >= st.n - removal_window)
@@ -556,11 +589,11 @@ def vo_frames(network, st, images, coords, depth_seeds, tstamps, **kw):
     vo_frames). images (K, H, W, 3); coords (K, M, 2) f32; depth_seeds
     (K, M) f32; tstamps (K,) f32.
 
-    The math is vo_frame's, frame by frame, and so are its host reads: the
-    motion probe's before initialization (without force_accept) and the
-    keyframe test's every initialized frame each read one scalar back.
-    What a chunk saves on this runtime is uploads (one per K frames), not
-    launches."""
+    The math is vo_frame's, frame by frame, and so are its host reads:
+    none from the bootstrap frame on, so the K frames are enqueued without
+    waiting for the device; before it, without force_accept, the motion
+    probe's accept decision once per frame. dpvo_tpu scans the chunk in
+    one dispatch; here each frame's kernels are launched in turn."""
     M = kw['M']
     for k in range(images.shape[0]):
         aux = torch.cat([coords[k], depth_seeds[k][:, None],

@@ -57,15 +57,19 @@ def _problem(seed=0, far_depth=False):
                 pv=pv, target=target, weight=weight, intr=intr)
 
 
-def _run_both(p, t0, t1, fbase):
+def _run_both(p, t0, t1, fbase, scalars=False):
+    """Both packages on problem p; with scalars, the port takes t0, t1 and
+    fbase as 0-d int64 tensors, as its runtime passes them."""
     names = ('poses', 'centers', 'depth', 'intr', 'target', 'weight')
+    bounds = ([torch.tensor(b) for b in (t0, t1, fbase)] if scalars
+              else [t0, t1, fbase])
     jr = ba_jax(*(jnp.asarray(p[k]) for k in names), 1e-4,
                 jnp.asarray(p['pi'], jnp.int32), jnp.asarray(p['pj'], jnp.int32),
                 jnp.asarray(p['pv']), jnp.int32(t0), jnp.int32(t1),
                 jnp.int32(fbase), M=M, W=W, PCF=PCF, iterations=2)
     tr = ba_torch(*(torch.tensor(p[k]) for k in names), 1e-4,
                   torch.from_numpy(p['pi']), torch.from_numpy(p['pj']),
-                  torch.from_numpy(p['pv']), t0, t1, fbase,
+                  torch.from_numpy(p['pv']), *bounds,
                   M=M, W=W, PCF=PCF, iterations=2)
     return [np.asarray(a) for a in jr], [a.numpy() for a in tr]
 
@@ -77,6 +81,28 @@ def test_matches_jax(t0, t1, fbase):
     assert np.abs(jp - p['poses']).max() > 1e-3   # the solve moved
     np.testing.assert_allclose(tp, jp, atol=POSE_TOL, rtol=0)
     np.testing.assert_allclose(td, jd, atol=DEPTH_TOL, rtol=0)
+
+
+@pytest.mark.parametrize('t0, t1, fbase', [
+    (1, 8, 0), (3, 8, 2), (0, 3, 0), (5, 8, 4), (6, 8, 7)])
+def test_device_scalar_windows_match_jax(t0, t1, fbase):
+    """The window bounds as device scalars: the pose window a gather of
+    W rows, retracted where live and written back, the depth window the
+    same over PC patches. Windows at the buffer's start (t0 = fbase = 0)
+    and past its end: t0 + W beyond the NF = 8 poses, and fbase M + PC
+    beyond the NF M depths, where dpvo_tpu's dynamic_slice moves the depth
+    window back into the buffer. Host ints give the same result."""
+    p = _problem()
+    (jp, jd), (tp, td) = _run_both(p, t0, t1, fbase, scalars=True)
+    np.testing.assert_allclose(tp, jp, atol=POSE_TOL, rtol=0)
+    np.testing.assert_allclose(td, jd, atol=DEPTH_TOL, rtol=0)
+    live = np.arange(NF)
+    live = (live >= t0) & (live < min(t0 + W, t1))
+    np.testing.assert_array_equal(tp[~live], p['poses'][~live])
+    assert np.abs(tp[live] - p['poses'][live]).max() > 1e-4
+    _, (hp, hd) = _run_both(p, t0, t1, fbase)
+    np.testing.assert_array_equal(hp, tp)
+    np.testing.assert_array_equal(hd, td)
 
 
 def test_nan_target_zero_update():

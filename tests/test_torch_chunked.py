@@ -43,8 +43,8 @@ def _port(chunk, upload='rgb'):
 
 def _summary(vo):
     """The state after the last frame, then terminate()'s output."""
-    st, n = vo.st, vo.st.n
-    out = dict(n=n, counter=st.counter, h2d=vo.h2d_bytes,
+    st, n = vo.st, vo.n
+    out = dict(n=n, counter=int(st.counter), h2d=vo.h2d_bytes,
                poses=st.poses[:n].numpy().copy(),
                depth=st.depth[:n * vo.M].numpy().copy())
     out['traj'], out['tstamps'] = vo.terminate()
@@ -99,11 +99,12 @@ def test_vo_frames_match_vo_frame(form):
             st = dv.vo_frames_packed(net, st, images[WARM:], aux[WARM:], **kw)
         sts.append(st)
     a, b = sts
-    assert (a.n, a.counter) == (b.n, b.counter) and a.n <= T - 4
-    np.testing.assert_allclose(b.poses[:a.n].numpy(), a.poses[:a.n].numpy(),
+    n = int(a.n)
+    assert (n, int(a.counter)) == (int(b.n), int(b.counter)) and n <= T - 4
+    np.testing.assert_allclose(b.poses[:n].numpy(), a.poses[:n].numpy(),
                                rtol=0, atol=1e-4)
-    np.testing.assert_allclose(b.depth[:a.n * M].numpy(),
-                               a.depth[:a.n * M].numpy(), rtol=1e-3,
+    np.testing.assert_allclose(b.depth[:n * M].numpy(),
+                               a.depth[:n * M].numpy(), rtol=1e-3,
                                atol=1e-4)
 
 

@@ -74,8 +74,9 @@ def _run_torch(frames, force_accept):
         for t in range(T):
             mv(np.full(B, float(t)), frames[t])
     assert len(mv.networks) == B and mv.networks[0] is mv.networks[1]
-    return mv, ([st.n for st in mv.states],
-                [st.poses[:st.n].numpy().copy() for st in mv.states])
+    n = [int(st.n) for st in mv.states]
+    return mv, (n, [st.poses[:k].numpy().copy()
+                    for st, k in zip(mv.states, n)])
 
 
 @pytest.mark.parametrize('force_accept', [False, True],

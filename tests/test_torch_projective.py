@@ -295,6 +295,7 @@ def test_vo_frame_packed_is_vo_frame():
             st = step(net, st, images[t], aux[t], **kw)
         sts.append(st)
     a, b = sts
-    assert a.is_init and (a.n, a.counter) == (b.n, b.counter)
+    assert bool(a.is_init) and a.host_n is None is b.host_n
+    assert (int(a.n), int(a.counter)) == (int(b.n), int(b.counter))
     for x, y in zip(a.tensors().values(), b.tensors().values()):
         assert torch.equal(x, y)

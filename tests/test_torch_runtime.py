@@ -104,7 +104,7 @@ def _run_torch(frames, force_accept, **kw):
     vo.force_accept = force_accept
     for t, img in enumerate(frames):
         vo(t, img, INTR)
-    n, counter = vo.st.n, vo.st.counter
+    n, counter = vo.n, int(vo.st.counter)
     poses, tstamps = vo.terminate()
     assert np.array_equal(tstamps, np.arange(len(frames)))
     pts = vo.point_cloud()
@@ -144,29 +144,46 @@ def test_median_matches_jnp(n):
     assert float(_median(torch.from_numpy(x))) == float(jnp.median(x))
 
 
-def test_keyframe_removal_shifts_whole_frames():
+SHIFTED = ('poses', 'tstamps', 'colors', 'centers', 'fslot', 'depth')
+
+
+@pytest.mark.parametrize('rm', [True, False])
+@pytest.mark.parametrize('n, k', [(6, 2), (6, 5), (64, 60), (64, 63)])
+def test_keyframe_removal_shifts_whole_frames(n, k, rm):
     """Removing keyframe k moves every per-frame row after it down by one
     frame, depth included (reference dpvo.py keyframe removal moves whole
     patch rows). dpvo_tpu's flat depth buffer is rolled by one element
     instead (runtime/device_vo.py:257), so depths after a removal differ
-    between the packages; the whole-slice test compares poses."""
+    between the packages; the whole-slice test compares poses.
+
+    _shift_frames takes k, n and rm as device scalars and rewrites only
+    the span = 4 rows from k; held here against a whole-buffer shift on
+    the host, with rm true and false, k at both ends of the window (n - k
+    = span, and n - k = 1, where nothing moves), at the buffer's start and
+    at its end (n = BUFFER_SIZE = 64, where the window is clamped)."""
     import torch
     from dpvo_torch.runtime.device_vo import _shift_frames, init_state
     c = _cfg(torch_cfg)
-    M, n, k = c.PATCHES_PER_FRAME, 6, 2
+    M, N, span = c.PATCHES_PER_FRAME, c.BUFFER_SIZE, 4
     st = init_state(c, H, W, INTR, 'cpu', torch.float32)
-    st.n = n
-    st.depth[:] = torch.arange(st.depth.numel(), dtype=torch.float32)
-    st.fslot[:] = torch.arange(st.fslot.numel())
-    st.poses[:, 0] = torch.arange(st.poses.shape[0], dtype=torch.float32)
-    before = st.depth.view(-1, M).clone()
-    _shift_frames(st, k, M)
-    after = st.depth.view(-1, M)
-    assert torch.equal(after[:k], before[:k])
-    assert torch.equal(after[k:n - 1], before[k + 1:n])
-    assert torch.equal(after[n - 1:], before[n - 1:])
-    assert st.fslot[:n].tolist() == [0, 1, 3, 4, 5, 5]
-    assert st.poses[:n, 0].tolist() == [0, 1, 3, 4, 5, 5]
+    rng = np.random.RandomState(n + k)
+    for name in SHIFTED:
+        buf = getattr(st, name)
+        buf.copy_(torch.from_numpy(rng.permutation(buf.numel()).reshape(
+            buf.shape)))
+    before = {name: getattr(st, name).numpy().copy() for name in SHIFTED}
+    _shift_frames(st, torch.tensor(k), torch.tensor(n), torch.tensor(rm), M,
+                  span)
+    for name in SHIFTED:
+        want = before[name].reshape(N, -1).copy()
+        if rm:
+            want[k:n - 1] = want[k + 1:n]
+        np.testing.assert_array_equal(
+            getattr(st, name).numpy().reshape(N, -1), want, err_msg=name)
+    if (n, k) == (6, 2):
+        moved = st.fslot[:n].tolist()
+        assert moved == before['fslot'][[0, 1, 3, 4, 5, 5] if rm else
+                                        list(range(n))].tolist()
 
 
 def test_device_vo_signature_and_viz(tmp_path, monkeypatch):

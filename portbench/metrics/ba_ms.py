@@ -1,0 +1,13 @@
+"""ba_ms (ms/frame): device time of the kernels launched inside the
+`ba` span (spans/ba.json) per frame, bundle adjustment, in client 0's
+frames traced alone once the window has closed: no other context shares
+the card then, so a kernel's time is its own and not the time slicer's."""
+
+
+def read(facts):
+    t = facts['trace']
+    s = t and t['solo']['spans']
+    if not s or not s.get('frame', {}).get('calls') or \
+            not s.get('ba', {}).get('device_s'):
+        return None
+    return 1e3 * s['ba']['device_s'] / s['frame']['calls']

@@ -29,12 +29,12 @@ import os
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models.vonet import RES, VONet, load_vonet
 from ..transfer import upload
 from . import numpy_se3 as nse3
 from .centroid import select_coords
-from .device_vo import CNT_CAP, init_state, vo_frame_packed1, \
-    vo_frames_packed1, vo_refine
+from .device_vo import CNT_CAP, init_state, vo_frame_packed1, vo_refine
 from .i420 import rgb_to_i420
 
 
@@ -177,25 +177,29 @@ class DeviceVO:
         """The frame's host randoms, in dpvo_tpu's order: (M, 2) patch
         centroids on the 1/4 grid (select_coords), then (M,) depth
         seeds."""
-        coords = select_coords(self.cfg, self.rng, image, self.M,
-                               self.ht // RES, self.wd // RES)
-        return coords, self.rng.rand(self.M)
+        with tracing.span('vo.draw'):
+            coords = select_coords(self.cfg, self.rng, image, self.M,
+                                   self.ht // RES, self.wd // RES)
+            return coords, self.rng.rand(self.M)
 
     def _pack_buf(self, image, tstamp, coords, seeds):
-        """One flat uint8 row for vo_frame(s)_packed1: [image bytes (rgb or
+        """One flat uint8 row for vo_frame_packed1: [image bytes (rgb or
         I420) | (M, 4) f32 aux bytes: coords, seed, tstamp]."""
-        aux = np.empty((self.M, 4), np.float32)
-        aux[:, :2] = coords
-        aux[:, 2] = seeds
-        aux[:, 3] = tstamp
-        pix = rgb_to_i420(image) if self._upload == 'yuv420' else image
-        return np.concatenate([pix.reshape(-1), aux.view(np.uint8).ravel()])
+        with tracing.span('vo.pack'):
+            aux = np.empty((self.M, 4), np.float32)
+            aux[:, :2] = coords
+            aux[:, 2] = seeds
+            aux[:, 3] = tstamp
+            pix = rgb_to_i420(image) if self._upload == 'yuv420' else image
+            return np.concatenate([pix.reshape(-1),
+                                   aux.view(np.uint8).ravel()])
 
     def _upload_rows(self, bufs):
         """One host-to-device copy through page-locked memory, which the
         host does not wait for (transfer.upload)."""
         self.h2d_bytes += bufs.nbytes
-        return upload(bufs, self.device)
+        with tracing.span('vo.upload', bytes=bufs.nbytes):
+            return upload(bufs, self.device)
 
     def _kw(self):
         return dict(ht=self.ht, wd=self.wd, upload=self._upload,
@@ -204,22 +208,28 @@ class DeviceVO:
 
     def __call__(self, tstamp, image, intrinsics):
         """Track one (ht, wd, 3) uint8 RGB frame."""
-        self._start(1, intrinsics)
-        image = self._frame(image)
-        self._step(tstamp, image, *self._draw(image))
+        tracing.frame(len(self.tlist))
+        with tracing.span('vo.frame'):
+            self._start(1, intrinsics)
+            image = self._frame(image)
+            self._step(tstamp, image, *self._draw(image))
 
     def step(self, tstamp, image, intrinsics, coords, seeds):
         """Track one frame with its host randoms given: (M, 2) patch
         centroids on the 1/4 grid and (M,) depth seeds (MultiStreamVO
         draws them for all its streams in dpvo_tpu's order)."""
-        self._start(1, intrinsics)
-        self._step(tstamp, self._frame(image), coords, seeds)
+        tracing.frame(len(self.tlist))
+        with tracing.span('vo.frame'):
+            self._start(1, intrinsics)
+            self._step(tstamp, self._frame(image), coords, seeds)
 
     def _step(self, tstamp, image, coords, seeds):
         buf = self._pack_buf(image, tstamp, coords, seeds)
         self.tlist.append(tstamp)
-        self.st = vo_frame_packed1(self.network, self.st,
-                                   self._upload_rows(buf), **self._kw())
+        rows = self._upload_rows(buf)
+        with tracing.span('vo.step'):
+            self.st = vo_frame_packed1(self.network, self.st, rows,
+                                       **self._kw())
         if self.viewer is not None:
             self.viewer.update_image(image)
             if len(self.tlist) % 10 == 0:
@@ -245,17 +255,31 @@ class DeviceVO:
     def track_frames(self, tstamps, images, intrinsics):
         """Track a chunk of K frames from one upload (dpvo_tpu's
         track_frames): images (K, ht, wd, 3) uint8. The math is per-frame
-        __call__'s, frame by frame (device_vo.vo_frames_packed1): from the
+        __call__'s, frame by frame (vo_frame_packed1 on each row): from the
         bootstrap frame on, the K frames are enqueued with no read back,
-        as per-frame calls are; the chunk saves K - 1 uploads."""
+        as per-frame calls are; the chunk saves K - 1 uploads.
+
+        Spans: each frame's vo.draw and vo.pack, then the chunk's one
+        vo.upload, come before any frame's step and so lie outside the
+        frames' vo.frame spans, each tagged with its frame (the upload
+        with the chunk's first); each frame's vo.frame holds its vo.step."""
         K = len(images)
         self._start(K, intrinsics)
+        first = len(self.tlist)
         frames = [self._frame(img) for img in images]
-        bufs = np.stack([self._pack_buf(img, ts, *self._draw(img))
-                         for img, ts in zip(frames, tstamps)])
+        bufs = []
+        for k, (img, ts) in enumerate(zip(frames, tstamps)):
+            tracing.frame(first + k)
+            bufs.append(self._pack_buf(img, ts, *self._draw(img)))
         self.tlist.extend(tstamps)
-        self.st = vo_frames_packed1(self.network, self.st,
-                                    self._upload_rows(bufs), **self._kw())
+        tracing.frame(first)
+        rows = self._upload_rows(np.stack(bufs))
+        kw = self._kw()
+        for k in range(K):
+            tracing.frame(first + k)
+            with tracing.span('vo.frame'), tracing.span('vo.step'):
+                self.st = vo_frame_packed1(self.network, self.st, rows[k],
+                                           **kw)
 
     def terminate(self):
         """Refine 12 times, then return (poses (T, 7) world-from-camera,

@@ -26,9 +26,9 @@ force_accept that takes no read; without it the host reads one value per
 pre-init frame after the first, the motion probe's accept decision, where
 dpvo_tpu's lax.cond reads nothing. That read is the only one left.
 
-Ingest (vo_frame_packed1, vo_frames_packed1): one flat uint8 upload per
-frame, [image bytes (rgb, or I420 planes turned back into RGB here by
-i420_to_rgb) | (M, 4) f32 aux bytes]. An optional target oracle (the
+Ingest (vo_frame_packed1): one flat uint8 upload row per frame, [image
+bytes (rgb, or I420 planes turned back into RGB here by i420_to_rgb) |
+(M, 4) f32 aux bytes]. An optional target oracle (the
 accuracy tests' seam, _call_oracle) replaces the correlation and the update
 operator; the reprojection and the BA still run.
 """
@@ -45,6 +45,7 @@ from ..ba_pairs import bundle_adjust_pairs, pair_centers, pair_depth, \
 from ..models.vonet import DIM, P
 from ..ops.corr_fused import corr_fused
 from ..ops.corr_onepass import corr_two_level
+from ..tracing import span
 
 CNT_CAP = 16384     # max input frames per sequence
 
@@ -317,47 +318,60 @@ def _update_ba(network, st, n1, *, M, W, PCF, iterations,
     W = OPTIMIZATION_WINDOW: the BA's pose slots, ending at keyframe n1 (a
     0-d integer tensor). With an oracle, its targets and weights replace
     the correlation and the update operator; the net state stays as it
-    is."""
+    is. Spans: vo.edges, then per iteration vo.iter holding vo.corr,
+    vo.update (the update operator and the target and weight writes; with
+    an oracle, its reprojection and call) and vo.ba."""
     GP = st.pi.shape[0]
     pmem = st.gmap.shape[0] // M
-    ar = torch.arange(M, device=st.pi.device)
-    edge_mask = st.pvalid.repeat_interleave(M)
-    mask3 = edge_mask.reshape(GP, M, 1)
-    t0 = (n1 - W).clamp(min=1)
-    fbase = (n1 - (PCF - 2)).clamp(min=0)
-    if oracle is None:
-        ix_pair, jx_pair = _pair_neighbors(st.pi, st.pj, st.pvalid)
-        ix_e = torch.where(ix_pair[:, None] >= 0, ix_pair[:, None] * M + ar,
-                           -1).reshape(GP * M)
-        jx_e = torch.where(jx_pair[:, None] >= 0, jx_pair[:, None] * M + ar,
-                           -1).reshape(GP * M)
-        # patch groups keyed by source ring slot (unique among live frames)
-        kk_ids = (_slot_of(st.fslot, st.pi)[:, None] * M + ar).reshape(GP * M)
-        pair_ids = torch.arange(GP, device=ar.device).repeat_interleave(M)
-    for _ in range(iterations):
+    with span('vo.edges'):
+        ar = torch.arange(M, device=st.pi.device)
+        edge_mask = st.pvalid.repeat_interleave(M)
+        mask3 = edge_mask.reshape(GP, M, 1)
+        t0 = (n1 - W).clamp(min=1)
+        fbase = (n1 - (PCF - 2)).clamp(min=0)
         if oracle is None:
-            coords_r, corr_feat, inp = _corr_features(
-                st, st.pi, st.pj, st.pvalid, st.poses, st.depth, M,
-                network.dtype, corr_impl)
-            netf, delta, wgt = network.update_op(
-                st.net.reshape(GP * M, DIM), inp, corr_feat, ix_e, jx_e,
-                kk_ids, pair_ids, num_segments=GP * M, edge_mask=edge_mask,
-                num_segments_kk=pmem * M, num_segments_ij=GP,
-                gather_pairs=(ix_pair, jx_pair, M))
-            st.net = netf.reshape(GP, M, DIM)
-            center = coords_r[:, :, P // 2, P // 2, :]
-            st.target = center + delta.reshape(GP, M, 2)
-            st.weight = torch.where(mask3, wgt.reshape(GP, M, 2), 0.0)
-        else:
-            center = _reproject_pairs(st.poses, st.centers, st.depth, st.intr,
-                                      st.pi, st.pj, M)[:, :, P // 2, P // 2]
-            tgt, wgt = _call_oracle(oracle, st, M)
-            st.target = torch.where(mask3, tgt.reshape(GP, M, 2), center)
-            st.weight = torch.where(mask3, wgt.reshape(GP, M, 2), 0.0)
-        st.poses, st.depth = bundle_adjust_pairs(
-            st.poses, st.centers, st.depth, st.intr, st.target, st.weight,
-            1e-4, st.pi, st.pj, st.pvalid, t0, n1, fbase,
-            M=M, W=W, PCF=PCF, iterations=2)
+            ix_pair, jx_pair = _pair_neighbors(st.pi, st.pj, st.pvalid)
+            ix_e = torch.where(ix_pair[:, None] >= 0,
+                               ix_pair[:, None] * M + ar, -1).reshape(GP * M)
+            jx_e = torch.where(jx_pair[:, None] >= 0,
+                               jx_pair[:, None] * M + ar, -1).reshape(GP * M)
+            # patch groups keyed by source ring slot (unique among live
+            # frames)
+            kk_ids = (_slot_of(st.fslot, st.pi)[:, None] * M
+                      + ar).reshape(GP * M)
+            pair_ids = torch.arange(GP, device=ar.device).repeat_interleave(M)
+    for _ in range(iterations):
+        with span('vo.iter'):
+            if oracle is None:
+                with span('vo.corr'):
+                    coords_r, corr_feat, inp = _corr_features(
+                        st, st.pi, st.pj, st.pvalid, st.poses, st.depth, M,
+                        network.dtype, corr_impl)
+                with span('vo.update'):
+                    netf, delta, wgt = network.update_op(
+                        st.net.reshape(GP * M, DIM), inp, corr_feat, ix_e,
+                        jx_e, kk_ids, pair_ids, num_segments=GP * M,
+                        edge_mask=edge_mask, num_segments_kk=pmem * M,
+                        num_segments_ij=GP,
+                        gather_pairs=(ix_pair, jx_pair, M))
+                    st.net = netf.reshape(GP, M, DIM)
+                    center = coords_r[:, :, P // 2, P // 2, :]
+                    st.target = center + delta.reshape(GP, M, 2)
+                    st.weight = torch.where(mask3, wgt.reshape(GP, M, 2), 0.0)
+            else:
+                with span('vo.update'):
+                    center = _reproject_pairs(
+                        st.poses, st.centers, st.depth, st.intr, st.pi, st.pj,
+                        M)[:, :, P // 2, P // 2]
+                    tgt, wgt = _call_oracle(oracle, st, M)
+                    st.target = torch.where(mask3, tgt.reshape(GP, M, 2),
+                                            center)
+                    st.weight = torch.where(mask3, wgt.reshape(GP, M, 2), 0.0)
+            with span('vo.ba'):
+                st.poses, st.depth = bundle_adjust_pairs(
+                    st.poses, st.centers, st.depth, st.intr, st.target,
+                    st.weight, 1e-4, st.pi, st.pj, st.pvalid, t0, n1, fbase,
+                    M=M, W=W, PCF=PCF, iterations=2)
 
 
 # ---------------------------------------------------------------------------
@@ -375,7 +389,14 @@ def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
     (patch centroids at 1/4 scale, the frame's depth seeds, its timestamp
     in every row). oracle: see _update_ba; pair it with force_accept (the
     motion probe still runs the learned network). Reads nothing back but
-    the probe's accept decision before initialization (module docstring)."""
+    the probe's accept decision before initialization (module docstring).
+
+    Spans (dpvo_torch.tracing), one after another: vo.patchify, vo.store
+    (motion model, depth init, row writes, ring slot, feature stores),
+    vo.probe (pre-init frames without force_accept), vo.pairs (counter,
+    init flags, pair append, fresh rows, compaction), _update_ba's
+    vo.edges and vo.iter, and once initialized vo.keyframe holding
+    vo.shift. Every device op the frame launches lies in one of them."""
     n, counter = st.n, st.counter
     N = st.poses.shape[0]
     GP = st.pi.shape[0]
@@ -385,106 +406,119 @@ def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
 
     # ---------------- patchify + store ---------------- #
     ndt = network.dtype
-    img = image.to(ndt) * torch.full((), 2.0 / 255.0, dtype=ndt, device=dev) \
-        - torch.full((), 0.5, dtype=ndt, device=dev)
-    feats = network.patchify_frame(img, coords)
+    with span('vo.patchify'):
+        img = image.to(ndt) * torch.full((), 2.0 / 255.0, dtype=ndt,
+                                         device=dev) \
+            - torch.full((), 0.5, dtype=ndt, device=dev)
+        feats = network.patchify_frame(img, coords)
 
-    # motion model (dpvo.py:410-424); indices clamp like the JAX gathers
-    P1 = _row(st.poses, n - 1)
-    pose_init = P1
-    if motion_model == 'DAMPED_LINEAR':
-        P2 = _row(st.poses, n - 2)
-        tc = _row(st.in_times, counter - 1)
-        tb = _row(st.in_times, counter - 2)
-        fac = torch.where((counter >= 2) & ((tb - tc).abs() > 0),
-                          (tstamp - tc) / torch.clamp(tc - tb, min=1e-6), 1.0)
-        xi = motion_damping * fac * lie.se3_log(
-            lie.se3_mul(P1, lie.se3_inv(P2)))
-        pose_init = torch.where(n > 1, lie.se3_mul(lie.se3_exp(xi), P1), P1)
+    with span('vo.store'):
+        # motion model (dpvo.py:410-424); indices clamp like the JAX
+        # gathers
+        P1 = _row(st.poses, n - 1)
+        pose_init = P1
+        if motion_model == 'DAMPED_LINEAR':
+            P2 = _row(st.poses, n - 2)
+            tc = _row(st.in_times, counter - 1)
+            tb = _row(st.in_times, counter - 2)
+            fac = torch.where((counter >= 2) & ((tb - tc).abs() > 0),
+                              (tstamp - tc) / torch.clamp(tc - tb, min=1e-6),
+                              1.0)
+            xi = motion_damping * fac * lie.se3_log(
+                lie.se3_mul(P1, lie.se3_inv(P2)))
+            pose_init = torch.where(n > 1, lie.se3_mul(lie.se3_exp(xi), P1),
+                                    P1)
 
-    # depth init (dpvo.py:426-431): median of the last 3 frames' depths
-    med = _median(_rows(st.depth, (n - 3).clamp(min=0) * M, 3 * M))
-    depth_init = torch.where(st.is_init, med.expand(M), depth_seed)
+        # depth init (dpvo.py:426-431): median of the last 3 frames' depths
+        med = _median(_rows(st.depth, (n - 3).clamp(min=0) * M, 3 * M))
+        depth_init = torch.where(st.is_init, med.expand(M), depth_seed)
 
-    nw = n.clamp(max=N - 1).reshape(1)      # dynamic_update_slice clamps
-    st.poses.index_copy_(0, nw, pose_init[None])
-    st.centers.index_copy_(
-        0, nw, feats['patch_xy'][:, :, 1, 1].reshape(1, 2 * M))
-    st.depth.index_copy_(0, window_rows(n * M, M, N * M, dev), depth_init)
-    st.colors.index_copy_(0, nw, feats['clr'][None])
-    st.tstamps.index_copy_(0, nw, counter.reshape(1))
-    st.in_times.index_copy_(0, counter.clamp(max=CNT_CAP - 1).reshape(1),
-                            tstamp.reshape(1))
+        nw = n.clamp(max=N - 1).reshape(1)  # dynamic_update_slice clamps
+        st.poses.index_copy_(0, nw, pose_init[None])
+        st.centers.index_copy_(
+            0, nw, feats['patch_xy'][:, :, 1, 1].reshape(1, 2 * M))
+        st.depth.index_copy_(0, window_rows(n * M, M, N * M, dev),
+                             depth_init)
+        st.colors.index_copy_(0, nw, feats['clr'][None])
+        st.tstamps.index_copy_(0, nw, counter.reshape(1))
+        st.in_times.index_copy_(0, counter.clamp(max=CNT_CAP - 1).reshape(1),
+                                tstamp.reshape(1))
 
-    # ring-slot allocation: the first slot no live frame references, over
-    # the fixed window of PCF + 2 frames ending at n
-    live_cap = PCF + 2
-    live_lo = (n - live_cap + 1).clamp(min=0)
-    pos = window_rows(live_lo, min(live_cap, N), N, dev)
-    used = torch.zeros((pmem + 1,), dtype=torch.int32, device=dev)
-    used.index_fill_(0, torch.where((pos >= live_lo) & (pos < n),
-                                    st.fslot.index_select(0, pos), pmem), 1)
-    slot = torch.argmin(used[:pmem]).reshape(1)   # first minimum: lowest
-    st.fslot.index_copy_(0, nw, slot)
-    st.imap.view(pmem, M, DIM).index_copy_(0, slot,
-                                           feats['imap'][None].to(ndt))
-    st.gmap.view(pmem, M, P, P, 128).index_copy_(
-        0, slot, feats['gmap'][None].to(ndt))
-    st.fmap1.index_copy_(0, slot, feats['fmap1'][None].to(ndt))
-    st.fmap2.index_copy_(0, slot, feats['fmap2'][None].to(ndt))
+        # ring-slot allocation: the first slot no live frame references,
+        # over the fixed window of PCF + 2 frames ending at n
+        live_cap = PCF + 2
+        live_lo = (n - live_cap + 1).clamp(min=0)
+        pos = window_rows(live_lo, min(live_cap, N), N, dev)
+        used = torch.zeros((pmem + 1,), dtype=torch.int32, device=dev)
+        used.index_fill_(0, torch.where((pos >= live_lo) & (pos < n),
+                                        st.fslot.index_select(0, pos), pmem),
+                         1)
+        slot = torch.argmin(used[:pmem]).reshape(1)  # first minimum: lowest
+        st.fslot.index_copy_(0, nw, slot)
+        st.imap.view(pmem, M, DIM).index_copy_(0, slot,
+                                               feats['imap'][None].to(ndt))
+        st.gmap.view(pmem, M, P, P, 128).index_copy_(
+            0, slot, feats['gmap'][None].to(ndt))
+        st.fmap1.index_copy_(0, slot, feats['fmap1'][None].to(ndt))
+        st.fmap2.index_copy_(0, slot, feats['fmap2'][None].to(ndt))
 
     # ---------------- probe (pre-init accept test) ---------------- #
     if force_accept or st.host_n is None or st.host_n == 0:
         accept = True
     else:
-        pi_p = (n - 1).clamp(min=0).reshape(1)
-        _, corr_feat, inp = _corr_features(
-            st, pi_p, pi_p + 1, torch.ones((1,), dtype=torch.bool,
+        with span('vo.probe'):
+            pi_p = (n - 1).clamp(min=0).reshape(1)
+            _, corr_feat, inp = _corr_features(
+                st, pi_p, pi_p + 1, torch.ones((1,), dtype=torch.bool,
+                                               device=dev),
+                st.poses, st.depth, M, ndt, corr_impl)
+            ids = torch.arange(M, device=dev)
+            neg = torch.full((M,), -1, dtype=torch.long, device=dev)
+            _, delta, _ = network.update_op(
+                torch.zeros((M, DIM), dtype=ndt, device=dev), inp, corr_feat,
+                neg, neg, ids, torch.zeros((M,), dtype=torch.long,
                                            device=dev),
-            st.poses, st.depth, M, ndt, corr_impl)
-        ids = torch.arange(M, device=dev)
-        neg = torch.full((M,), -1, dtype=torch.long, device=dev)
-        _, delta, _ = network.update_op(
-            torch.zeros((M, DIM), dtype=ndt, device=dev), inp, corr_feat,
-            neg, neg, ids, torch.zeros((M,), dtype=torch.long, device=dev),
-            num_segments=M, edge_mask=torch.ones((M,), dtype=torch.bool,
-                                                 device=dev))
-        # the one read left: the accept decision (pre-init frames only)
-        accept = bool(_median(torch.linalg.vector_norm(delta, dim=-1)) >= 2.0)
+                num_segments=M, edge_mask=torch.ones((M,), dtype=torch.bool,
+                                                     device=dev))
+            # the one read left: the accept decision (pre-init frames only)
+            accept = bool(_median(torch.linalg.vector_norm(delta, dim=-1))
+                          >= 2.0)
 
-    st.counter = counter + 1
-    if not accept:
-        # rejected pre-init frame: identity delta to the previous input
-        st.delta_src.index_copy_(0, counter.reshape(1),
-                                 (counter - 1).reshape(1))
-        return st
+    with span('vo.pairs'):
+        st.counter = counter + 1
+        if not accept:
+            # rejected pre-init frame: identity delta to the previous input
+            st.delta_src.index_copy_(0, counter.reshape(1),
+                                     (counter - 1).reshape(1))
+            return st
 
-    n1 = n + 1
-    was_init = st.host_n is None
-    bootstrap = not was_init and st.host_n + 1 == 8
-    st.host_n = None if was_init or bootstrap else st.host_n + 1
-    st.is_init = st.is_init | (n1 == 8)
+        n1 = n + 1
+        was_init = st.host_n is None
+        bootstrap = not was_init and st.host_n + 1 == 8
+        st.host_n = None if was_init or bootstrap else st.host_n + 1
+        st.is_init = st.is_init | (n1 == 8)
 
-    # ---- append pair factors (dpvo.py:457-459) ---- #
-    # forward (i, n1-1) for i in [n1-r, n1-1); backward (n1-1, j) for j in
-    # [n1-r, n1); pairs with a negative frame, and rows past GP, dropped
-    ar = torch.arange(r, device=dev)
-    last = (n1 - 1).expand(r)
-    new_i = torch.cat([n1 - r + ar[:-1], last])
-    new_j = torch.cat([last[:-1], n1 - r + ar])
-    new_v = (new_i >= 0) & (new_j >= 0)
-    idx = st.pvalid.sum() + torch.cumsum(new_v.long(), 0) - 1
-    idx = torch.where(new_v & (idx < GP), idx, GP)
-    st.pi = _set_rows(st.pi, idx, new_i.clamp(min=0))
-    st.pj = _set_rows(st.pj, idx, new_j.clamp(min=0))
-    # the rows written are the valid new pairs': new_v is True there
-    st.pvalid = _set_rows(st.pvalid, idx, new_v)
-    fresh = _set_rows(torch.zeros(GP, dtype=torch.bool, device=dev), idx,
-                      new_v)
-    st.net = st.net.masked_fill(fresh[:, None, None], 0.0)
-    st.target = st.target.masked_fill(fresh[:, None, None], 0.0)
-    st.weight = st.weight.masked_fill(fresh[:, None, None], 0.0)
-    _compact_pairs(st)
+        # ---- append pair factors (dpvo.py:457-459) ---- #
+        # forward (i, n1-1) for i in [n1-r, n1-1); backward (n1-1, j) for j
+        # in [n1-r, n1); pairs with a negative frame, and rows past GP,
+        # dropped
+        ar = torch.arange(r, device=dev)
+        last = (n1 - 1).expand(r)
+        new_i = torch.cat([n1 - r + ar[:-1], last])
+        new_j = torch.cat([last[:-1], n1 - r + ar])
+        new_v = (new_i >= 0) & (new_j >= 0)
+        idx = st.pvalid.sum() + torch.cumsum(new_v.long(), 0) - 1
+        idx = torch.where(new_v & (idx < GP), idx, GP)
+        st.pi = _set_rows(st.pi, idx, new_i.clamp(min=0))
+        st.pj = _set_rows(st.pj, idx, new_j.clamp(min=0))
+        # the rows written are the valid new pairs': new_v is True there
+        st.pvalid = _set_rows(st.pvalid, idx, new_v)
+        fresh = _set_rows(torch.zeros(GP, dtype=torch.bool, device=dev), idx,
+                          new_v)
+        st.net = st.net.masked_fill(fresh[:, None, None], 0.0)
+        st.target = st.target.masked_fill(fresh[:, None, None], 0.0)
+        st.weight = st.weight.masked_fill(fresh[:, None, None], 0.0)
+        _compact_pairs(st)
 
     # ---- update iterations (12 at bootstrap, 1 once initialized) ---- #
     iters = 12 if bootstrap else (1 if was_init else 0)
@@ -494,30 +528,36 @@ def vo_frame(network, st, image, aux, *, M, W, PCF, r, kf_index,
 
     # ---- keyframe decision (dpvo.py:266-310), on the device ---- #
     if was_init:
-        i = n1 - kf_index - 1
-        j = n1 - kf_index + 1
-        mflow = 0.5 * (
-            _center_flow(st.poses, st.centers, st.depth, st.intr, i, j, M) +
-            _center_flow(st.poses, st.centers, st.depth, st.intr, j, i, M))
-        rm = mflow < kf_thresh
-        k = n1 - kf_index
-        t1 = st.tstamps.index_select(0, k.reshape(1))
-        dP = lie.se3_mul(_row(st.poses, k), lie.se3_inv(_row(st.poses, k - 1)))
-        st.delta_src.index_copy_(0, t1, torch.where(
-            rm, _row(st.tstamps, k - 1), st.delta_src.index_select(0, t1)))
-        st.delta_pose.index_copy_(0, t1, torch.where(
-            rm, dP[None], st.delta_pose.index_select(0, t1)))
+        with span('vo.keyframe'):
+            i = n1 - kf_index - 1
+            j = n1 - kf_index + 1
+            mflow = 0.5 * (
+                _center_flow(st.poses, st.centers, st.depth, st.intr, i, j,
+                             M) +
+                _center_flow(st.poses, st.centers, st.depth, st.intr, j, i,
+                             M))
+            rm = mflow < kf_thresh
+            k = n1 - kf_index
+            t1 = st.tstamps.index_select(0, k.reshape(1))
+            dP = lie.se3_mul(_row(st.poses, k),
+                             lie.se3_inv(_row(st.poses, k - 1)))
+            st.delta_src.index_copy_(0, t1, torch.where(
+                rm, _row(st.tstamps, k - 1),
+                st.delta_src.index_select(0, t1)))
+            st.delta_pose.index_copy_(0, t1, torch.where(
+                rm, dP[None], st.delta_pose.index_select(0, t1)))
 
-        drop = rm & ((st.pi == k) | (st.pj == k))
-        st.pvalid = st.pvalid & ~drop
-        st.pi = torch.where(rm & (st.pi > k), st.pi - 1, st.pi)
-        st.pj = torch.where(rm & (st.pj > k), st.pj - 1, st.pj)
-        _shift_frames(st, k, n1, rm, M, kf_index)
-        st.n = n1 - rm.long()
+            drop = rm & ((st.pi == k) | (st.pj == k))
+            st.pvalid = st.pvalid & ~drop
+            st.pi = torch.where(rm & (st.pi > k), st.pi - 1, st.pi)
+            st.pj = torch.where(rm & (st.pj > k), st.pj - 1, st.pj)
+            with span('vo.shift'):
+                _shift_frames(st, k, n1, rm, M, kf_index)
+            st.n = n1 - rm.long()
 
-        # retire pairs outside the window (dpvo.py:305-310)
-        st.pvalid = st.pvalid & (st.pi >= st.n - removal_window)
-        _compact_pairs(st)
+            # retire pairs outside the window (dpvo.py:305-310)
+            st.pvalid = st.pvalid & (st.pi >= st.n - removal_window)
+            _compact_pairs(st)
     return st
 
 
@@ -606,13 +646,4 @@ def vo_frames_packed(network, st, images, aux, **kw):
     """vo_frames with the per-frame aux packed as (K, M, 4)."""
     for k in range(images.shape[0]):
         st = vo_frame(network, st, images[k], aux[k], **kw)
-    return st
-
-
-def vo_frames_packed1(network, st, bufs, *, ht, wd, upload='rgb', **kw):
-    """vo_frames over the rows of one (K, row bytes) uint8 upload, each
-    row laid out as vo_frame_packed1's buf."""
-    for buf in bufs:
-        st = vo_frame_packed1(network, st, buf, ht=ht, wd=wd, upload=upload,
-                              **kw)
     return st
